@@ -1,0 +1,776 @@
+"""Exchange planner on the stacked backend (twin of ``repro.core.exchange_plan``).
+
+The same plan → execute pipeline as the JAX package, for the single-device
+stacked backend: every table has a leading node axis, and the cross-node
+exchange is a permutation of rows between the (source, destination) axes.
+
+* :func:`build_executor` maps (role, policy, batch, :class:`ExchangeConfig`)
+  to one executor;
+* the executors share one interface (``plan`` / ``send`` / ``collect`` /
+  ``served``):
+
+  ==================  ====================================================
+  ``DenseExecutor``   bucketize broadcast, O(N²·q) — the parity oracle
+  ``UniformExecutor`` per-destination budget B, (L, N, B) buffers, with
+                      the lossless carry round
+  ``RaggedExecutor``  packed (L, Σbᵢ) histogram-sized segments
+  ==================  ====================================================
+
+* :func:`run_exchange` runs plan → send → receiver apply → reply collect,
+  plus the one copy of the carry round.  The JAX package gates the carry
+  with ``lax.cond``; here the predicate is read from the device eagerly.
+* :func:`fused_write_plan` / :func:`fused_send` ship a write's data and
+  metadata planes as one round with no reply leg.
+
+Every send-order gather goes through ``gather_rows_batched`` (the
+``pack_chunks`` kernel on the card), and every per-row destination count
+through ``histogram_rows2d`` (the ``dest_histogram2d`` kernel).  The ragged
+receive views are row permutations of the packed send buffer with zero
+pads, which is again the ``pack_chunks`` gather.
+
+The mesh plans (``MeshRaggedSpec``, ``PermuteExecutor``) and the modeled
+footprint are not ported yet.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from functools import cached_property
+from typing import Callable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.layouts import LayoutMode
+from repro_torch.core.policy import LayoutPolicy, as_policy
+from repro_torch.kernels.chunk_pack.ops import gather_rows, gather_rows_batched
+from repro_torch.kernels.chunk_router.ops import histogram_rows2d
+
+#: modes whose writes structurally concentrate a whole batch on one node
+LOCAL_WRITE_MODES = frozenset({LayoutMode.NODE_LOCAL, LayoutMode.HYBRID})
+
+I32 = torch.int32
+
+
+def _extra(t: torch.Tensor, ndim: int) -> tuple:
+    """Trailing singleton axes that broadcast a (L, q) mask over ``t``."""
+    return (1,) * (t.dim() - ndim)
+
+
+# ---------------------------------------------------------------------------
+# stacked exchange and the dense oracle
+# ---------------------------------------------------------------------------
+def stacked_exchange(x: torch.Tensor) -> torch.Tensor:
+    """(N_src, N_dst, ...) → (N_dst, N_src, ...): single-device all_to_all."""
+    return x.transpose(0, 1)
+
+
+def bucketize(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int,
+              payload: torch.Tensor) -> torch.Tensor:
+    """Route per-slot requests into per-destination buckets (no compaction).
+
+    dest, valid: (N, q); payload: (N, q, ...).  Returns the buckets
+    (N, n_nodes, q, ...), zero where a slot does not go to that node.
+    """
+    nodes = torch.arange(n_nodes, device=dest.device)
+    hit = (dest[:, None, :] == nodes[None, :, None]) & valid[:, None, :]
+    pb = payload[:, None].expand((payload.shape[0], n_nodes)
+                                 + tuple(payload.shape[1:]))
+    mask = hit.reshape(hit.shape + _extra(payload, 2))
+    return torch.where(mask, pb, torch.zeros((), dtype=payload.dtype,
+                                             device=payload.device))
+
+
+def collect_replies(dest: torch.Tensor, reply_buckets: torch.Tensor,
+                    n_nodes: int) -> torch.Tensor:
+    """Inverse of ``bucketize`` on the requester side: (N, n_nodes, q, ...)
+    replies in slot positions → (N, q, ...), each slot taking the reply of
+    its destination (zero for an out-of-range destination)."""
+    nodes = torch.arange(n_nodes, device=dest.device)
+    hit = dest[:, None, :] == nodes[None, :, None]
+    mask = hit.reshape(hit.shape + _extra(reply_buckets, 3))
+    return torch.where(mask, reply_buckets, 0).sum(
+        dim=1, dtype=reply_buckets.dtype)
+
+
+# ---------------------------------------------------------------------------
+# static budget specs
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class RaggedSpec:
+    """Static ragged per-destination send budgets (one exchange round).
+
+    ``budgets[d]`` send-buffer columns are reserved for destination ``d``;
+    the packed buffer is (L, ``total``) with destination ``d``'s segment at
+    columns [``offsets[d]``, ``offsets[d]`` + bᵈ).  Build one with
+    ``plan_ragged_spec`` on the destinations of a call.
+    """
+
+    budgets: Tuple[int, ...]
+
+    @property
+    def n_nodes(self) -> int:
+        """Number of destinations (the length of the budget tuple)."""
+        return len(self.budgets)
+
+    @property
+    def total(self) -> int:
+        """Σbᵢ — the packed send-buffer column count."""
+        return sum(self.budgets)
+
+    @cached_property
+    def bmax(self) -> int:
+        """Widest per-destination segment (receive-side padding width)."""
+        return max(self.budgets) if self.budgets else 0
+
+    @cached_property
+    def offsets(self) -> np.ndarray:
+        """(n_nodes,) exclusive prefix sum of ``budgets``."""
+        return np.concatenate(
+            [[0], np.cumsum(self.budgets[:-1])]).astype(np.int32) \
+            if self.budgets else np.zeros(0, np.int32)
+
+    @cached_property
+    def dcol(self) -> np.ndarray:
+        """(total,) destination owning each packed column."""
+        return np.repeat(np.arange(self.n_nodes, dtype=np.int32),
+                         self.budgets)
+
+    @cached_property
+    def jcol(self) -> np.ndarray:
+        """(total,) rank of each packed column within its segment."""
+        return np.concatenate(
+            [np.arange(b, dtype=np.int32) for b in self.budgets]
+        ).astype(np.int32) if self.total else np.zeros(0, np.int32)
+
+    @cached_property
+    def recv_cols(self) -> np.ndarray:
+        """(n_nodes·bmax,) packed column feeding each padded receive slot.
+
+        Receive slot (d, j) reads packed column ``offsets[d] + j`` when
+        ``j < budgets[d]``, else the sentinel ``-1`` (zero row).
+        """
+        col = np.full((self.n_nodes, max(self.bmax, 0)), -1, np.int32)
+        for d, b in enumerate(self.budgets):
+            col[d, :b] = self.offsets[d] + np.arange(b)
+        return col.reshape(-1)
+
+
+def _quantize(budgets: np.ndarray, q: int, align: int,
+              floor: Optional[np.ndarray]) -> np.ndarray:
+    """Round measured budgets up to ``align`` lanes, clamp to q, apply the
+    presizing floor (see ``plan_ragged_spec``)."""
+    out = np.where(budgets > 0, np.minimum(q, -(-budgets // align) * align),
+                   0)
+    if floor is not None:
+        out = np.minimum(q, np.maximum(out, np.asarray(floor, np.int64)))
+    return out
+
+
+def _sentinel_dest(dest: torch.Tensor, valid: torch.Tensor,
+                   n_nodes: int) -> torch.Tensor:
+    """Destinations with invalid slots moved to the extra bin ``n_nodes``."""
+    return torch.where(valid, dest.to(I32), n_nodes).to(I32).contiguous()
+
+
+def plan_ragged_spec(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int,
+                     align: int = 8,
+                     floor: Optional[np.ndarray] = None) -> RaggedSpec:
+    """Measure per-destination traffic and build a lossless ``RaggedSpec``.
+
+    Budget ``d`` is the per-row ``dest_histogram2d`` maximum over all source
+    rows, rounded up to a multiple of ``align`` (clamped to the row length
+    q; zero-traffic destinations stay 0).  ``floor`` raises budgets to a
+    running minimum so a steady workload converges to one spec.  Reads the
+    counts back to the host.
+    """
+    d = _sentinel_dest(dest, valid, n_nodes)
+    q = d.shape[1]
+    counts = histogram_rows2d(d, n_bins=n_nodes + 1)[:, :n_nodes]
+    budgets = (counts.max(dim=0).values.cpu().numpy().astype(np.int64)
+               if counts.shape[0] else np.zeros(n_nodes, np.int64))
+    budgets = _quantize(budgets, q, align, floor)
+    return RaggedSpec(tuple(int(b) for b in budgets))
+
+
+# ---------------------------------------------------------------------------
+# exchange configuration
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ExchangeConfig:
+    """Data-plane exchange selection (hashable).
+
+    kind: "dense" (bucketize broadcast, the parity oracle) or "compacted".
+    ``budget``/``meta_budget`` fix the uniform per-destination slot counts
+    (``None`` auto-sizes, see ``data_budget``/``meta_budget``).
+    ``lossless`` carries uniform-budget overflow into a second round sized
+    ``q − B`` (``False``: drop and account it).  ``data_spec``/``meta_spec``
+    switch a plane to a measured :class:`RaggedSpec`.  ``pipeline`` lets a
+    lossless write fuse its data and metadata rounds.  ``carry_budget_hint``
+    caps the carry round at a measured residual.
+    """
+
+    kind: str = "dense"
+    budget: Optional[int] = None
+    meta_budget: Optional[int] = None
+    capacity: float = 2.0
+    lossless: bool = True
+    data_spec: Optional[RaggedSpec] = None
+    meta_spec: Optional[RaggedSpec] = None
+    pipeline: bool = True
+    carry_budget_hint: Optional[int] = None
+
+    def __post_init__(self):
+        if self.kind not in ("dense", "compacted"):
+            raise ValueError(f"unknown exchange kind {self.kind!r}; "
+                             "pass 'dense' or 'compacted'")
+
+
+DENSE = ExchangeConfig("dense")
+COMPACTED = ExchangeConfig("compacted")
+
+
+def _auto_budget(q: int, bins: int, capacity: float) -> int:
+    b = int(math.ceil(capacity * q / max(1, bins)))
+    return min(q, max(8, -(-b // 8) * 8))
+
+
+def data_budget(policy: LayoutPolicy, q: int, config: ExchangeConfig) -> int:
+    """Per-destination slot budget for the data exchange."""
+    if config.budget is not None:
+        return max(1, min(q, config.budget))
+    if policy.modes_present() & LOCAL_WRITE_MODES:
+        # local writes / hybrid data_loc reads can send a whole batch to one
+        # node: the concentration is structural, so stay exact
+        return q
+    return _auto_budget(q, policy.n_nodes, config.capacity)
+
+
+def meta_budget(policy: LayoutPolicy, q: int, config: ExchangeConfig) -> int:
+    """Per-destination slot budget for the metadata exchange.
+
+    Auto-sizing is lossless (``B = q``): the chunks of one file all route
+    to one metadata owner however many nodes there are.
+    """
+    if config.meta_budget is not None:
+        return max(1, min(q, config.meta_budget))
+    if config.budget is not None:
+        return max(1, min(q, config.budget))
+    return q
+
+
+def _carry_budget(q: int, b: int) -> int:
+    """Budget of the lossless carry round after a round at ``b``: at most
+    ``q − b`` requests of one (source, destination) pair are left over."""
+    return max(0, q - b)
+
+
+# ---------------------------------------------------------------------------
+# the per-call plan
+# ---------------------------------------------------------------------------
+@dataclass
+class ExchangePlan:
+    """One call's routing, produced by ``Executor.plan``.
+
+    ``send_idx``: request slot feeding each send-buffer column (-1 = pad);
+    ``reply_idx``: flat reply column of each request (-1 = unserved);
+    ``overflow``: (L,) valid requests beyond this plan's budgets.
+    """
+
+    dest: torch.Tensor
+    valid: torch.Tensor
+    send_idx: Optional[torch.Tensor] = None
+    reply_idx: Optional[torch.Tensor] = None
+    overflow: Optional[torch.Tensor] = None
+
+
+def _sorted_routing(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int):
+    """Stable destination sort of each row plus its destination histogram.
+
+    Returns (order, sorted dest, counts (L, n_nodes), exclusive start).
+    The sort must be stable: requests of one (source, destination) pair
+    keep their slot order, so the receiver appends in the dense path's
+    order.
+    """
+    d = _sentinel_dest(dest, valid, n_nodes)
+    order = torch.argsort(d, dim=1, stable=True)
+    sd = torch.gather(d, 1, order)
+    counts = histogram_rows2d(d, n_bins=n_nodes + 1)[:, :n_nodes]
+    start = torch.cumsum(counts, dim=1, dtype=I32) - counts
+    return order, sd, counts, start
+
+
+def _reply_index(order: torch.Tensor, sd: torch.Tensor, start: torch.Tensor,
+                 n_nodes: int, cap: torch.Tensor, base: torch.Tensor
+                 ) -> torch.Tensor:
+    """Reply column of each request: ``base[d] + rank`` when the request's
+    rank within its destination run is below ``cap[d]``, else -1; scattered
+    back from sorted to slot order."""
+    L, q = sd.shape
+    startx = torch.cat([start, start.new_zeros((L, 1))], dim=1)
+    rank = torch.arange(q, dtype=I32, device=sd.device)[None, :] - \
+        torch.gather(startx, 1, sd.long())
+    sdl = sd.long()
+    slot = torch.where((sd < n_nodes) & (rank < cap[sdl]), base[sdl] + rank,
+                       -1).to(I32)
+    return torch.zeros((L, q), dtype=I32, device=sd.device).scatter_(
+        1, order, slot)
+
+
+def _compact_plan(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int,
+                  budget: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-based routing plan for one uniform-budget round.
+
+    dest/valid: (L, q).  Returns send_idx (L, n_nodes, budget) int32 (-1 for
+    empty slots), reply_idx (L, q) int32 into the flat (n_nodes·budget)
+    reply buffer (-1 for invalid/overflowed requests) and overflow (L,).
+    """
+    L, q = dest.shape
+    dev = dest.device
+    if q == 0:
+        return (torch.full((L, n_nodes, budget), -1, dtype=I32, device=dev),
+                torch.zeros((L, 0), dtype=I32, device=dev),
+                torch.zeros(L, dtype=I32, device=dev))
+    order, sd, counts, start = _sorted_routing(dest, valid, n_nodes)
+    take = counts.clamp(max=budget)
+    b = torch.arange(budget, dtype=I32, device=dev)
+    pos = (start[:, :, None] + b[None, None, :]).clamp(0, q - 1)
+    src = torch.gather(order, 1, pos.reshape(L, -1).long()).reshape(
+        L, n_nodes, budget).to(I32)
+    send_idx = torch.where(b[None, None, :] < take[:, :, None], src, -1)
+    overflow = (counts - take).sum(dim=1, dtype=I32)
+    nodes = torch.arange(n_nodes + 1, dtype=I32, device=dev)
+    cap = torch.full((n_nodes + 1,), budget, dtype=I32, device=dev)
+    reply_idx = _reply_index(order, sd, start, n_nodes, cap, nodes * budget)
+    return send_idx.to(I32), reply_idx, overflow
+
+
+def _compact_gather(x: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
+    """Gather request rows into send order: (L, q, ...) → (L, N, B, ...);
+    empty budget slots (send_idx == -1) come back zero."""
+    L = x.shape[0]
+    out = gather_rows_batched(
+        x, send_idx.reshape(L, send_idx.shape[1] * send_idx.shape[2]))
+    return out.reshape((L,) + tuple(send_idx.shape[1:]) + tuple(x.shape[2:]))
+
+
+def compact_collect_flat(reply_idx: torch.Tensor, reply: torch.Tensor,
+                         fill: int = 0) -> torch.Tensor:
+    """Scatter replies back to request slots: (L, S, ...) → (L, q, ...).
+
+    Unserved requests (reply_idx == -1) get ``fill``.
+    """
+    L, q = reply_idx.shape
+    rest = tuple(reply.shape[2:])
+    if reply.shape[1] == 0:
+        return torch.full((L, q) + rest, fill, dtype=reply.dtype,
+                          device=reply.device)
+    rows = torch.arange(L, device=reply.device)[:, None]
+    got = reply[rows, reply_idx.clamp(0, reply.shape[1] - 1).long()]
+    return got.masked_fill_((reply_idx < 0).reshape((L, q) + (1,) *
+                                                     len(rest)), fill)
+
+
+def compact_collect(reply_idx: torch.Tensor, reply: torch.Tensor,
+                    fill: int = 0) -> torch.Tensor:
+    """Uniform-budget twin of ``compact_collect_flat``: reply is
+    (L, N, B, ...), flattened over the (destination, budget) axes."""
+    L = reply.shape[0]
+    return compact_collect_flat(
+        reply_idx, reply.reshape((L, reply.shape[1] * reply.shape[2])
+                                 + tuple(reply.shape[3:])), fill)
+
+
+def _compact_plan_ragged(dest: torch.Tensor, valid: torch.Tensor,
+                         n_nodes: int, spec: RaggedSpec
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ragged twin of ``_compact_plan``: per-destination segment widths.
+
+    Returns (send_idx (L, Σbᵢ), reply_idx (L, q), overflow (L,)); overflow
+    is zero when ``spec`` was measured on the same dest/valid.
+    """
+    L, q = dest.shape
+    dev = dest.device
+    if q == 0:
+        return (torch.full((L, spec.total), -1, dtype=I32, device=dev),
+                torch.zeros((L, 0), dtype=I32, device=dev),
+                torch.zeros(L, dtype=I32, device=dev))
+    order, sd, counts, start = _sorted_routing(dest, valid, n_nodes)
+    if spec.total:
+        dcol = torch.as_tensor(spec.dcol, device=dev).long()
+        jcol = torch.as_tensor(spec.jcol, device=dev)
+        pos = (start[:, dcol] + jcol[None, :]).clamp(0, q - 1)
+        src = torch.gather(order, 1, pos.long()).to(I32)
+        send_idx = torch.where(jcol[None, :] < counts[:, dcol], src, -1)
+    else:
+        send_idx = torch.zeros((L, 0), dtype=I32, device=dev)
+    b_arr = torch.as_tensor(np.asarray(spec.budgets + (0,), np.int32),
+                            device=dev)
+    off_arr = torch.as_tensor(np.concatenate([spec.offsets, [0]]).astype(
+        np.int32), device=dev)
+    take = torch.minimum(counts, b_arr[None, :n_nodes])
+    overflow = (counts - take).sum(dim=1, dtype=I32)
+    reply_idx = _reply_index(order, sd, start, n_nodes, b_arr, off_arr)
+    return send_idx.to(I32), reply_idx, overflow
+
+
+def _take_rows(packed: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
+    """(L, S, F) packed send buffer × (N, M) static flat row pointers
+    (-1 → zero row) → (N, M, F) receive view, through the pack kernel."""
+    L, S = packed.shape[:2]
+    rest = tuple(packed.shape[2:])
+    idx = torch.as_tensor(rows.reshape(-1), device=packed.device)
+    out = gather_rows(packed.reshape(L * S, math.prod(rest)), idx)
+    return out.reshape(tuple(rows.shape) + rest)
+
+
+@functools.lru_cache(maxsize=64)
+def _ragged_recv_rows(spec: RaggedSpec, n_src: int) -> np.ndarray:
+    """(N, n_src·bmax) flat packed row feeding receive slot (d, s·bmax + j):
+    ``s·Σb + recv_cols[d·bmax + j]``, or -1 for a pad slot."""
+    col = spec.recv_cols.reshape(spec.n_nodes, spec.bmax)
+    src = np.arange(n_src, dtype=np.int64)[None, :, None] * spec.total
+    rows = np.where(col[:, None, :] >= 0, src + col[:, None, :], -1)
+    return rows.reshape(spec.n_nodes, n_src * spec.bmax).astype(np.int32)
+
+
+def ragged_exchange(x: torch.Tensor, spec: RaggedSpec,
+                    n_nodes: int) -> torch.Tensor:
+    """Stacked exchange of a packed ragged send buffer.
+
+    x: (L = n_nodes, Σbᵢ, ...) source-major packed segments.  Returns the
+    receiver view (n_nodes, n_nodes·bmax, ...): destination ``d`` sees its
+    own segment from every source, padded to ``bmax`` with zero rows (the
+    pads carry occupancy 0, so they arrive marked invalid).
+    """
+    if spec.bmax == 0:
+        return x.new_zeros((n_nodes, 0) + tuple(x.shape[2:]))
+    return _take_rows(x, _ragged_recv_rows(spec, x.shape[0]))
+
+
+def ragged_reply_exchange(reply: torch.Tensor, spec: RaggedSpec,
+                          n_nodes: int) -> torch.Tensor:
+    """Inverse of ``ragged_exchange`` for replies: (n_nodes, n_nodes·bmax,
+    ...) in padded receive order → (n_nodes, Σbᵢ, ...) packed columns of
+    each source, ready for ``compact_collect_flat``."""
+    rest = tuple(reply.shape[2:])
+    if spec.total == 0:
+        return reply.new_zeros((n_nodes, 0) + rest)
+    M = n_nodes * spec.bmax
+    dcol = torch.as_tensor(spec.dcol, device=reply.device).long()
+    jcol = torch.as_tensor(spec.jcol, device=reply.device).long()
+    src = torch.arange(n_nodes, device=reply.device)[:, None]
+    flat = dcol[None, :] * M + src * spec.bmax + jcol[None, :]
+    out = reply.reshape((n_nodes * M,) + rest).index_select(0, flat.reshape(-1))
+    return out.reshape((n_nodes, spec.total) + rest)
+
+
+# ---------------------------------------------------------------------------
+# executors: one interface, three transports
+# ---------------------------------------------------------------------------
+def _split(recv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Receive view → (fields, validity from the trailing occupancy col)."""
+    return recv[..., :-1], recv[..., -1] > 0
+
+
+@dataclass(frozen=True)
+class DenseExecutor:
+    """The bucketize broadcast — O(N²·q), kept as the parity oracle."""
+
+    n_nodes: int
+    carry_budget: int = 0
+
+    def plan(self, dest, valid) -> ExchangePlan:
+        """Dense needs no permutation: the plan is the routing itself."""
+        return ExchangePlan(dest, valid)
+
+    def send(self, plan: ExchangePlan, fields: torch.Tensor):
+        """Broadcast-bucketize the fields; the trailing ones-column arrives
+        as the receiver validity mask."""
+        rf = stacked_exchange(bucketize(plan.dest, plan.valid, self.n_nodes,
+                                        fields))                    # (L, N_src, q, F)
+        L = rf.shape[0]
+        return _split(rf.reshape(L, rf.shape[1] * rf.shape[2], rf.shape[3]))
+
+    def collect(self, plan: ExchangePlan, reply: torch.Tensor,
+                fill: int = 0) -> torch.Tensor:
+        """Reply buckets travel back; each slot takes its destination's."""
+        L, M = reply.shape[:2]
+        q = M // self.n_nodes
+        r = stacked_exchange(reply.reshape((L, self.n_nodes, q)
+                                           + tuple(reply.shape[2:])))
+        return collect_replies(plan.dest, r, self.n_nodes)
+
+    def served(self, plan: ExchangePlan) -> torch.Tensor:
+        """Dense serves every valid request in one round."""
+        return plan.valid
+
+
+@dataclass(frozen=True)
+class UniformExecutor:
+    """Per-destination budget B: (L, N, B) send buffers."""
+
+    n_nodes: int
+    budget: int
+    carry_budget: int = 0
+
+    def plan(self, dest, valid) -> ExchangePlan:
+        """Destination-stable sort + budget clip (``_compact_plan``)."""
+        send_idx, reply_idx, overflow = _compact_plan(
+            dest, valid, self.n_nodes, self.budget)
+        return ExchangePlan(dest, valid, send_idx, reply_idx, overflow)
+
+    def send(self, plan: ExchangePlan, fields: torch.Tensor):
+        """Gather into (L, N, B) budgeted buffers, one exchange."""
+        rf = stacked_exchange(_compact_gather(fields, plan.send_idx))
+        L = rf.shape[0]
+        return _split(rf.reshape(L, rf.shape[1] * rf.shape[2], rf.shape[3]))
+
+    def collect(self, plan: ExchangePlan, reply: torch.Tensor,
+                fill: int = 0) -> torch.Tensor:
+        """One reply exchange, scattered through the inverse plan."""
+        L, M = reply.shape[:2]
+        r = stacked_exchange(reply.reshape(
+            (L, self.n_nodes, M // self.n_nodes) + tuple(reply.shape[2:])))
+        return compact_collect(plan.reply_idx, r, fill)
+
+    def served(self, plan: ExchangePlan) -> torch.Tensor:
+        """Requests whose reply slot fit this round's budget."""
+        return plan.reply_idx >= 0
+
+
+@dataclass(frozen=True)
+class RaggedExecutor:
+    """Packed (L, Σbᵢ) histogram-sized segments."""
+
+    n_nodes: int
+    spec: RaggedSpec
+    carry_budget: int = 0
+
+    def plan(self, dest, valid) -> ExchangePlan:
+        """Segment-packed routing plan (``_compact_plan_ragged``)."""
+        send_idx, reply_idx, overflow = _compact_plan_ragged(
+            dest, valid, self.n_nodes, self.spec)
+        return ExchangePlan(dest, valid, send_idx, reply_idx, overflow)
+
+    def send(self, plan: ExchangePlan, fields: torch.Tensor):
+        """Only the Σbᵢ packed columns are gathered; pads at the receiver."""
+        return _split(ragged_exchange(
+            gather_rows_batched(fields, plan.send_idx), self.spec,
+            self.n_nodes))
+
+    def collect(self, plan: ExchangePlan, reply: torch.Tensor,
+                fill: int = 0) -> torch.Tensor:
+        """Packed reply columns back to their request slots."""
+        rr = ragged_reply_exchange(reply, self.spec, self.n_nodes)
+        return compact_collect_flat(plan.reply_idx, rr, fill)
+
+    def served(self, plan: ExchangePlan) -> torch.Tensor:
+        """Measured segments cover every request (lossless by plan)."""
+        return plan.valid
+
+
+Executor = Union[DenseExecutor, UniformExecutor, RaggedExecutor]
+
+
+def build_executor(role: str, policy, q: int,
+                   config: ExchangeConfig) -> Executor:
+    """The planner: one routing decision shared by every entry point.
+
+    ``role`` is "data" or "meta" (it selects the budget rule and which spec
+    of ``config`` applies).
+    """
+    policy = as_policy(policy)
+    N = policy.n_nodes
+    if config.kind != "compacted":
+        return DenseExecutor(N)
+    spec = config.data_spec if role == "data" else config.meta_spec
+    if spec is not None:
+        return RaggedExecutor(N, spec)
+    B = (data_budget(policy, q, config) if role == "data"
+         else meta_budget(policy, q, config))
+    carry = _carry_budget(q, B) if (config.lossless and B < q) else 0
+    if carry and config.carry_budget_hint is not None:
+        carry = min(carry, max(0, int(config.carry_budget_hint)))
+    return UniformExecutor(N, B, carry_budget=carry)
+
+
+# ---------------------------------------------------------------------------
+# fused write: data + metadata planes in one round
+# ---------------------------------------------------------------------------
+def fuse_specs(data_spec: RaggedSpec, meta_spec: RaggedSpec
+               ) -> Optional[RaggedSpec]:
+    """Summed ragged spec of the fused write buffer (None = not fusable):
+    each destination segment is the data segment followed by the metadata
+    segment."""
+    if data_spec.n_nodes != meta_spec.n_nodes:
+        return None
+    return RaggedSpec(tuple(bd + bm for bd, bm in
+                            zip(data_spec.budgets, meta_spec.budgets)))
+
+
+def _fused_pack_cols(spec_d: RaggedSpec, spec_m: RaggedSpec) -> np.ndarray:
+    """(Σbᵈ+Σbᵐ,) column of ``concat([data_packed, meta_packed])`` feeding
+    each fused packed column (destination-major, data plane first)."""
+    cols = []
+    for d in range(spec_d.n_nodes):
+        od, om = int(spec_d.offsets[d]), int(spec_m.offsets[d])
+        cols.append(np.arange(od, od + spec_d.budgets[d]))
+        cols.append(spec_d.total + np.arange(om, om + spec_m.budgets[d]))
+    return (np.concatenate(cols).astype(np.int32) if cols
+            else np.zeros(0, np.int32))
+
+
+def _fused_recv_cols(spec_d: RaggedSpec, spec_m: RaggedSpec,
+                     fused: RaggedSpec) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-plane receive maps into the fused ``ragged_exchange`` view.
+
+    Returns (data (N, N·bmaxᵈ), meta (N, N·bmaxᵐ)) int32 maps: entry
+    ``[i, s·bmaxᵖ + j]`` is the fused receive column holding receiver
+    ``i``'s j-th row from source ``s`` on plane p, or -1 for a pad slot.
+    """
+    n = spec_d.n_nodes
+    bf = max(fused.bmax, 0)
+
+    def plane(spec: RaggedSpec, base) -> np.ndarray:
+        bp = max(spec.bmax, 0)
+        idx = np.full((n, n * bp), -1, np.int32)
+        for i in range(n):
+            b = spec.budgets[i]
+            for s in range(n):
+                idx[i, s * bp:s * bp + b] = s * bf + base[i] + np.arange(b)
+        return idx
+
+    return plane(spec_d, [0] * n), plane(spec_m, list(spec_d.budgets))
+
+
+@functools.lru_cache(maxsize=64)
+def _fused_plane_rows(spec_d: RaggedSpec, spec_m: RaggedSpec
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Each plane's receive view as flat rows of that plane's own packed
+    buffer, composed through the fused buffer's maps.
+
+    Fused receive column ``r`` of receiver ``i`` holds fused packed column
+    ``fused.recv_cols[i·bf + r mod bf]`` of source ``r div bf``, which holds
+    column ``_fused_pack_cols[...]`` of the planes' concatenation.  On the
+    stacked backend the fused buffer itself never needs to exist: the
+    composed maps gather each plane's receive view straight from the
+    plane's packed rows.
+    """
+    fused = fuse_specs(spec_d, spec_m)
+    n, bf = spec_d.n_nodes, fused.bmax
+    cols_d, cols_m = _fused_recv_cols(spec_d, spec_m, fused)
+    recv = fused.recv_cols.reshape(n, bf)
+    pack = _fused_pack_cols(spec_d, spec_m)
+    rows_i = np.arange(n)[:, None]
+
+    def plane(cols: np.ndarray, lo: int, width: int) -> np.ndarray:
+        if cols.size == 0:
+            return cols
+        ok = cols >= 0
+        c = np.where(ok, cols, 0)
+        p = recv[rows_i, c % bf]
+        ok &= p >= 0
+        col = pack[np.where(ok, p, 0)] - lo
+        return np.where(ok, (c // bf) * width + col, -1).astype(np.int32)
+
+    return (plane(cols_d, 0, spec_d.total),
+            plane(cols_m, spec_d.total, spec_m.total))
+
+
+def fused_write_plan(policy, q: int, config: ExchangeConfig
+                     ) -> Optional[Tuple[Executor, Executor]]:
+    """Per-plane executors for the fused write round (None = not fused).
+
+    Fusion needs a compacted, lossless, pipelined config and plans that
+    cannot overflow into a carry round (a fused carry would split the
+    metadata batch across two applies, and duplicate keys allocate
+    differently in one apply than in two): measured ragged specs on both
+    planes, or uniform budgets already at ``B = q``.
+    """
+    if config.kind != "compacted" or not config.pipeline \
+            or not config.lossless or q == 0:
+        return None
+    policy = as_policy(policy)
+    N = policy.n_nodes
+    ds, ms = config.data_spec, config.meta_spec
+    if ds is not None or ms is not None:
+        if ds is not None and ms is not None and \
+                fuse_specs(ds, ms) is not None:
+            return RaggedExecutor(N, ds), RaggedExecutor(N, ms)
+        return None
+    if data_budget(policy, q, config) < q \
+            or meta_budget(policy, q, config) < q:
+        return None
+    return UniformExecutor(N, q), UniformExecutor(N, q)
+
+
+def fused_send(ex_d: Executor, plan_d: ExchangePlan, fields_d: torch.Tensor,
+               ex_m: Executor, plan_m: ExchangePlan, fields_m: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """Ship two planes' requests as one round → ``(recv_d, rvalid_d, recv_m,
+    rvalid_m)``, each plane's receive view exactly as its own
+    ``Executor.send`` would have produced it.
+
+    Two ``UniformExecutor``s concatenate on the budget axis and the receiver
+    slices the planes back apart, so each plane's view is its own send.
+    Two ``RaggedExecutor``s interleave per destination segment; the static
+    maps of ``_fused_plane_rows`` take each plane's view from its packed
+    rows.
+    """
+    if isinstance(ex_d, UniformExecutor):
+        return (*ex_d.send(plan_d, fields_d), *ex_m.send(plan_m, fields_m))
+    rows_d, rows_m = _fused_plane_rows(ex_d.spec, ex_m.spec)
+    rd = _take_rows(gather_rows_batched(fields_d, plan_d.send_idx), rows_d)
+    rm = _take_rows(gather_rows_batched(fields_m, plan_m.send_idx), rows_m)
+    return (*_split(rd), *_split(rm))
+
+
+# ---------------------------------------------------------------------------
+# the round runner
+# ---------------------------------------------------------------------------
+def run_exchange(role: str, policy, config: ExchangeConfig,
+                 dest: torch.Tensor, valid: torch.Tensor,
+                 fields: torch.Tensor, apply_fn: Callable, *, state,
+                 reply_fill: int = 0):
+    """One planned exchange round, plus the shared carry round.
+
+    1. ``build_executor`` picks the transport; the executor plans the
+       routing and ships ``fields`` (a (L, q, F) int32 buffer whose
+       trailing ones-column becomes the receiver validity mask);
+    2. ``apply_fn(state, recv, rvalid) -> (new_state | None, reply | None)``
+       runs the receiver-side table op;
+    3. replies are routed back to request slots;
+    4. a lossless uniform under-budget plan carries its residual into a
+       second round at ``carry_budget`` when any row overflowed (read from
+       the device: the eager twin of the JAX package's ``lax.cond``).
+
+    Returns ``(state, out, served, overflow)``.
+    """
+    ex = build_executor(role, policy, dest.shape[1], config)
+    plan = ex.plan(dest, valid)
+    recv, rvalid = ex.send(plan, fields)
+    new_state, reply = apply_fn(state, recv, rvalid)
+    mutates = new_state is not None
+    st = new_state if mutates else state
+    out = None if reply is None else ex.collect(plan, reply, reply_fill)
+    served = ex.served(plan)
+    if ex.carry_budget and bool((plan.overflow.sum() > 0).item()):
+        resid = valid & ~served
+        ex2 = UniformExecutor(ex.n_nodes, ex.carry_budget)
+        plan2 = ex2.plan(dest, resid)
+        recv2, rvalid2 = ex2.send(plan2, fields)
+        st2, reply2 = apply_fn(st, recv2, rvalid2)
+        if mutates:
+            st = st2
+        if out is not None:
+            out2 = ex2.collect(plan2, reply2, reply_fill)
+            out = torch.where(resid.reshape(resid.shape + _extra(out, 2)),
+                              out2, out)
+    overflow = (plan.overflow if plan.overflow is not None
+                else torch.zeros(dest.shape[0], dtype=I32,
+                                 device=dest.device))
+    return st, out, served, overflow
