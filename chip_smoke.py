@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the burst-buffer data plane once on one card.
+"""Drive the PyTorch/CUDA port once on one card: the burst-buffer data
+plane, then fault-tolerant training of gemma3-1b with Proteus checkpoints.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which must succeed or the run fails without a result line:
 
-  (a) build both hand-written kernels from ``src/repro_torch/csrc`` with
-      nvcc for sm_90a, all sources compiled in parallel;
+  (a) build the four hand-written kernels from ``src/repro_torch/csrc``
+      with nvcc for sm_90a, all sources compiled in parallel;
   (b) each kernel against its plain PyTorch version on the card, bit for
-      bit, at the shapes the deployment's first write gives it and at
-      sentinel and edge shapes;
+      bit, at the shapes its main path gives it and at sentinel and edge
+      shapes (``fletcher`` up to the full embedding leaf, 302 M words in
+      4608 chunks; ``route_chunks`` in all four modes);
   (c) the deployment, through ``BBClient``: 32 burst-buffer nodes, 1 MiB
       chunks, the heterogeneous policy (``/bb/ckpt`` HYBRID, ``/bb/shared``
       DIST_HASH, default CENTRAL_META), 256 chunk slots and 1024 metadata
@@ -23,7 +25,20 @@ Phases, each of which must succeed or the run fails without a result line:
       yardstick (CUDA events; profiler device time for the launch-bound
       histogram) beside the bound; the client's write / read / stat
       latency (host clock), the read's stage breakdown, and a profile of
-      one write, read and stat (device busy time, idle share, top kernels).
+      one write, read and stat (device busy time, idle share, top kernels);
+  (f) training: ``run_training`` with gemma3-1b at full width (26 layers,
+      d 1152, vocab 262144, 999,812,736 params, bf16 compute, f32 params),
+      batch 4 × 1024 tokens, checkpoints every 2 steps through the
+      deployment policy (/bb/ckpt → HYBRID, 32 nodes) under a failure plan
+      with a straggler redo, a corrupted checkpoint rejected by the card's
+      checksum with a fallback, and a crash restored from a checkpoint
+      verified on the card; the FailureLog and final step must equal what
+      the JAX loop gives under the same plan (pinned below), and both
+      checkpoint kernels' launch counts (zeroed just before) above 0;
+  (g) checkpoint and step times: a save (blocking part and async part) and
+      a restore of the full final state (12 GB), checked bit for bit; the
+      kernels' times per save against their bounds; the train step's time,
+      tokens/s and a profile of one step.
 
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -34,10 +49,12 @@ no CUDA card is present or any phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -56,6 +73,25 @@ WORDS = (1 << 20) // 4                    # one 1 MiB chunk in int32 words
 SCOPES = {"/bb/ckpt": 4, "/bb/shared": 3}  # HYBRID, DIST_HASH
 DEFAULT_MODE = 2                          # CENTRAL_META
 N_WRITES = 3
+
+# (f) training: gemma3-1b at full width, checkpoints through the deployment
+# policy above (/bb/ckpt → HYBRID).  The plan: a straggler redo at step 1;
+# a corruption at step 2 of the only checkpoint (step 2), rejected by the
+# checksum at the crash at step 3, with a fallback to a cold start; the
+# replay meets the straggler and the corruption again; the crash at step 4
+# restores the verified checkpoint of step 4.  The store keeps every save
+# (two distinct, 12 GB each).  TRAIN_EXPECTED is what the JAX loop gives
+# under the same plan and policy on the CPU
+# (tests/test_torch_train.py::test_chip_plan_failure_log_pinned_to_jax_loop).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "gemma3-1b", 4, 1024
+TRAIN_STEPS, CKPT_EVERY = 5, 2
+TRAIN_PLAN = {1: "straggler", 2: "corrupt_ckpt", 3: "crash", 4: "crash"}
+TRAIN_EXPECTED = {
+    "failure_log": {"crashes": 2, "stragglers": 2, "corruptions": 2,
+                    "restores": 1, "fallback_restores": 1,
+                    "redone_steps": [1, 1]},
+    "final_step": 5,
+}
 
 # SHA-256 digests pinned by the JAX package's tests (tests/test_policy.py,
 # SEED_DIGESTS: the seed engine's outputs for the fixed trace of
@@ -239,6 +275,71 @@ def phase_kernels_vs_plain(seed: int) -> dict:
     return err
 
 
+def embedding_leaf(gen: torch.Generator) -> torch.Tensor:
+    """A leaf the size of gemma3-1b's embedding: 262144 × 1152 float32."""
+    return torch.randn((262144, 1152), device=DEVICE, generator=gen)
+
+
+def phase_checkpoint_kernels_vs_plain(seed: int) -> dict:
+    """``fletcher`` and ``route_chunks`` against their plain versions, bit
+    for bit, at the checkpoint path's shapes and at edge shapes."""
+    from repro_torch.checkpoint.manager import CHUNK_WORDS
+    from repro_torch.kernels.chunk_router.chunk_router import route_chunks
+    from repro_torch.kernels.chunk_router.ref import route_chunks_ref
+    from repro_torch.kernels.fletcher.fletcher import fletcher_chunks
+    from repro_torch.kernels.fletcher.ops import as_words
+    from repro_torch.kernels.fletcher.ref import fletcher_chunks_ref
+    err = {"fletcher": 0.0, "route_chunks": 0.0}
+    rng = np.random.RandomState(seed)
+    dev = torch.device(DEVICE)
+
+    def fl_case(label, words, chunk):
+        got = fletcher_chunks(words, chunk)
+        torch.cuda.synchronize()
+        ref = fletcher_chunks_ref(words, chunk)
+        e = max_abs_err(got, ref)
+        err["fletcher"] = max(err["fletcher"], e)
+        check(torch.equal(got, ref), f"fletcher {label} differs")
+        log(f"[kernels] fletcher {label}: {words.numel()} words, chunks of "
+            f"{chunk} -> {tuple(got.shape)}: equal (max_abs_err {e})")
+
+    for n, chunk in ((1, CHUNK_WORDS), (1000, 1000), (1023, 1024),
+                     (1025, 1024), (3 * CHUNK_WORDS + 17, CHUNK_WORDS),
+                     (2 * CHUNK_WORDS, CHUNK_WORDS), (0, CHUNK_WORDS),
+                     (300001, 300001)):
+        w = rng.randint(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64).astype(
+            np.int32)
+        if n:
+            w[rng.randint(0, n, max(1, n // 50))] = -2 ** 31    # -0.0
+            w[rng.randint(0, n, max(1, n // 50))] = 2 ** 31 - 1
+        fl_case("edge", torch.as_tensor(w, device=dev), chunk)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    emb = embedding_leaf(gen)
+    emb[0, :64] = -0.0
+    fl_case("main path (embedding leaf)", as_words(emb), CHUNK_WORDS)
+    del emb
+    torch.cuda.empty_cache()
+
+    for mode in (1, 2, 3, 4):
+        for n in (1, 1000, 45770):
+            for nodes in (32, 64):
+                ph = torch.as_tensor(rng.randint(0, 2 ** 31 - 1, n).astype(
+                    np.int32), device=dev)
+                cid = torch.arange(n, dtype=torch.int32, device=dev)
+                cl = cid % nodes
+                d, c = route_chunks(ph, cid, cl, mode=mode, n_nodes=nodes)
+                torch.cuda.synchronize()
+                rd, rc = route_chunks_ref(ph, cid, cl, mode=mode,
+                                          n_nodes=nodes)
+                e = max(max_abs_err(d, rd), max_abs_err(c, rc))
+                err["route_chunks"] = max(err["route_chunks"], e)
+                check(torch.equal(d, rd) and torch.equal(c, rc),
+                      f"route_chunks mode {mode} n {n} nodes {nodes} differs")
+    log(f"[kernels] route_chunks modes 1-4 x n 1/1000/45770 x nodes 32/64: "
+        f"equal (max_abs_err {err['route_chunks']})")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # (c) the deployment through BBClient
 # ---------------------------------------------------------------------------
@@ -301,7 +402,7 @@ def phase_deployment(seed: int, counters) -> dict:
     log(f"[deploy] {N_WRITES} fused writes ({N_WRITES * N_NODES * Q} chunks, "
         f"{N_WRITES * N_NODES * Q} MiB), {N_WRITES} reads, stats, create, "
         f"remove: all checks hold in {time.perf_counter() - t0:.2f} s")
-    log(f"[deploy] launches on the main path: {launches}")
+    log(f"[deploy] launches on the data-plane path: {launches}")
     log(f"[deploy] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return {"client": client, "batches": batches, "launches": launches}
@@ -562,6 +663,203 @@ def profile_call(name: str, fn) -> None:
 
 
 # ---------------------------------------------------------------------------
+# (f) training gemma3-1b with Proteus checkpoints
+# ---------------------------------------------------------------------------
+def mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def phase_train(seed: int, counters) -> dict:
+    from repro_torch.configs import all_configs
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.failure import FailurePlan
+    from repro_torch.train.loop import LoopConfig, run_training
+    cfg = all_configs()[TRAIN_ARCH]
+    model = build_model(cfg)
+    n_params = model.param_count()
+    check(n_params == 999_812_736, f"{TRAIN_ARCH} has {n_params} params")
+    log(f"[train] {TRAIN_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {n_params:,} params ({cfg.param_dtype} "
+        f"params, {cfg.dtype} compute); batch {TRAIN_BATCH} x {TRAIN_SEQ}; "
+        f"window {cfg.window_size} < S: local layers take the windowed mask")
+    log(f"[train] host MemAvailable {mem_available_gib():.1f} GiB before; "
+        f"the store keeps every save (12.0 GB each)")
+    loop_cfg = LoopConfig(steps=TRAIN_STEPS, ckpt_every=CKPT_EVERY,
+                          layout_policy=deployment_policy())
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = run_training(model, cfg, TRAIN_BATCH, TRAIN_SEQ, loop_cfg,
+                       failure_plan=FailurePlan(dict(TRAIN_PLAN)), seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.name: c.launches for c in counters}
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the training path")
+    got = dataclasses.asdict(res.failure_log)
+    log(f"[train] FailureLog {got}, final step {res.final_step}, "
+        f"{len(res.losses)} steps kept, in {wall:.2f} s")
+    check(got == TRAIN_EXPECTED["failure_log"],
+          f"FailureLog {got} differs from the JAX loop's "
+          f"{TRAIN_EXPECTED['failure_log']}")
+    check(res.final_step == TRAIN_EXPECTED["final_step"],
+          f"final step {res.final_step}")
+    check(all(np.isfinite(res.losses)) and len(res.losses) > 0,
+          f"losses not finite: {res.losses}")
+    log(f"[train] losses {['%.4f' % x for x in res.losses]}")
+    log(f"[train] launches on the training path: {launches}")
+    log(f"[train] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; host "
+        f"MemAvailable {mem_available_gib():.1f} GiB after")
+    return {"result": res, "launches": launches, "cfg": cfg, "model": model,
+            "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# (g) checkpoint and step times
+# ---------------------------------------------------------------------------
+def phase_checkpoint_times(train: dict) -> dict:
+    from repro_torch.checkpoint.manager import (CHUNK_WORDS,
+                                                CheckpointManager,
+                                                flatten_state)
+    from repro_torch.core.layouts import str_hash
+    from repro_torch.kernels.chunk_router.chunk_router import route_chunks
+    from repro_torch.kernels.chunk_router.ref import route_chunks_ref
+    from repro_torch.kernels.fletcher.fletcher import fletcher_chunks
+    from repro_torch.kernels.fletcher.ops import as_words
+    from repro_torch.kernels.fletcher.ref import (fletcher_chunks_ref,
+                                                  n_chunks_of)
+    out = {}
+    state = train["result"].state
+    leaves = flatten_state(state)
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    n_chunks = sum(n_chunks_of(as_words(t).numel(), CHUNK_WORDS)
+                   for _, t in leaves)
+    log(f"[ckpt] final state: {len(leaves)} leaves, {nbytes / 1e9:.3f} GB, "
+        f"{n_chunks} chunks of {CHUNK_WORDS * 4 // 1024} KiB")
+    policy = deployment_policy()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, policy, async_save=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, state)
+        t_block = time.perf_counter() - t0
+        mgr.wait()
+        t_total = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, step = mgr.restore(TRAIN_STEPS, state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        check(step == TRAIN_STEPS, f"restored step {step}")
+        for (k, a), (_, b) in zip(flatten_state(restored), leaves):
+            check(a.device == b.device and a.dtype == b.dtype and
+                  a.shape == b.shape,
+                  f"restored leaf {k} differs in kind")
+            check(torch.equal(a.reshape(-1).view(torch.uint8),
+                              b.reshape(-1).view(torch.uint8)),
+                  f"restored leaf {k} differs from the saved one")
+        del restored, mgr
+    log(f"[ckpt] save of the full state: {t_block * 1e3:.1f} ms blocks the "
+        f"loop (checksums and routing on the card, device-to-host copy), "
+        f"{(t_total - t_block) * 1e3:.1f} ms more on the save thread "
+        f"({nbytes / t_total / 1e9:.2f} GB/s end to end); restore "
+        f"{t_restore * 1e3:.1f} ms ({nbytes / t_restore / 1e9:.2f} GB/s); "
+        f"restored state equals the saved one bit for bit")
+    out["save"] = dict(block_ms=t_block * 1e3,
+                       async_ms=(t_total - t_block) * 1e3,
+                       restore_ms=t_restore * 1e3, nbytes=nbytes,
+                       n_chunks=n_chunks, n_leaves=len(leaves))
+
+    # fletcher: every leaf of one save, one launch each (CUDA events)
+    words = [as_words(t) for _, t in leaves]
+    per_save = cuda_ms(lambda: [fletcher_chunks(w, CHUNK_WORDS)
+                                for w in words], 3)
+    b_save, _ = bound_ms(sum(w.numel() * 4 for w in words) + n_chunks * 8,
+                         0)
+    log(f"[time] fletcher per save: {per_save:.3f} ms for {len(words)} "
+        f"launches over {nbytes / 1e9:.3f} GB, bound {b_save:.3f} ms "
+        f"(bytes), {b_save / per_save:.3f} of bound")
+    emb = as_words(dict(leaves)["[0]/['embed']/['embedding']"])
+    nc = n_chunks_of(emb.numel(), CHUNK_WORDS)
+    t_k = cuda_ms(lambda: fletcher_chunks(emb, CHUNK_WORDS), 10)
+    t_p = cuda_ms(lambda: fletcher_chunks_ref(emb, CHUNK_WORDS), 2,
+                  warmup=1)
+    b, by = bound_ms(emb.numel() * 4 + nc * 8, emb.numel() * 8)
+    out["fletcher"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                           bound_ms=b, bound_by=by, per_save_ms=per_save,
+                           per_save_bound_ms=b_save,
+                           shape=f"embedding leaf: {emb.numel()} words, "
+                                 f"{nc} chunks")
+    del words, emb
+    torch.cuda.empty_cache()
+
+    # route_chunks: launch-bound; device time at the largest leaf, and the
+    # wrapper's host time per leaf over one save's leaves
+    nodes = policy.n_nodes
+    cid = torch.arange(nc, dtype=torch.int32, device=DEVICE)
+    ph = torch.full_like(cid, str_hash(f"/bb/ckpt/{TRAIN_STEPS}/emb"))
+    cl = cid % nodes
+    t_k = device_ms(lambda: route_chunks(ph, cid, cl, mode=4,
+                                         n_nodes=nodes), 50)
+    t_p = device_ms(lambda: route_chunks_ref(ph, cid, cl, mode=4,
+                                             n_nodes=nodes), 50)
+    b, by = bound_ms(nc * 16 + nodes * 4, nc * 10)
+    leaf_ids = [torch.arange(n_chunks_of(as_words(t).numel(), CHUNK_WORDS),
+                             dtype=torch.int32, device=DEVICE)
+                for _, t in leaves]
+
+    def route_all():
+        for c in leaf_ids:
+            route_chunks(torch.full_like(c, 12345), c, c % nodes, mode=4,
+                         n_nodes=nodes)
+    per_leaf_us = host_ms(route_all, 3) * 1e3 / len(leaf_ids)
+    out["route_chunks"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                               bound_ms=b, bound_by=by,
+                               per_leaf_us=per_leaf_us,
+                               shape=f"{nc} descriptors (embedding leaf), "
+                                     f"{nodes} nodes, HYBRID")
+    for name in ("fletcher", "route_chunks"):
+        r = out[name]
+        log(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
+    log(f"[time] route_chunks per leaf through the wrapper (host clock, "
+        f"{len(leaf_ids)} leaves of one save): {per_leaf_us:.1f} us")
+    return out
+
+
+def phase_step_times(seed: int, train: dict) -> dict:
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+    cfg, model = train["cfg"], train["model"]
+    params, opt_state, _ = train["result"].state
+    step = make_train_step(model, AdamW(warmup_steps=5,
+                                        total_steps=TRAIN_STEPS))
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in pipe.next_batch().items()}
+    box = {}
+
+    def one():
+        box["out"] = step(params, opt_state, batch)
+        box.pop("out")
+
+    t_step = host_ms(one, 3)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[time] train step {t_step:.1f} ms (best of 3), "
+        f"{tokens / t_step * 1e3:.0f} tokens/s, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}")
+    profile_call("train step", one)
+    return {"step_ms": t_step, "tokens_per_s": tokens / t_step * 1e3}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -573,9 +871,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import kernels
     from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS
-    from repro_torch.kernels.chunk_router.chunk_router import \
-        DEST_HISTOGRAM2D
+    from repro_torch.kernels.chunk_router.chunk_router import (
+        DEST_HISTOGRAM2D, ROUTE_CHUNKS)
+    from repro_torch.kernels.fletcher.fletcher import FLETCHER
     counters = (DEST_HISTOGRAM2D, PACK_CHUNKS)
+    ckpt_counters = (FLETCHER, ROUTE_CHUNKS)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     phase = "build"
@@ -583,12 +883,23 @@ def main() -> int:
         phase_build(kernels)
         phase = "kernels vs plain"
         err = phase_kernels_vs_plain(args.seed)
+        err.update(phase_checkpoint_kernels_vs_plain(args.seed))
         phase = "deployment"
         deploy = phase_deployment(args.seed, counters)
         phase = "seed digests"
         phase_seed_digests()
         phase = "timings"
         times = phase_timings(args.seed, deploy)
+        launches = dict(deploy["launches"])
+        del deploy
+        torch.cuda.empty_cache()
+        phase = "train"
+        train = phase_train(args.seed, ckpt_counters)
+        launches.update(train["launches"])
+        phase = "checkpoint times"
+        times.update(phase_checkpoint_times(train))
+        phase = "step times"
+        times["step"] = phase_step_times(args.seed, train)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -603,11 +914,15 @@ def main() -> int:
             (DEST_HISTOGRAM2D, "src/repro_torch/csrc/dest_histogram2d.cu",
              "src/repro/kernels/chunk_router/chunk_router.py:133"),
             (PACK_CHUNKS, "src/repro_torch/csrc/pack_chunks.cu",
-             "src/repro/kernels/chunk_pack/chunk_pack.py:42")):
+             "src/repro/kernels/chunk_pack/chunk_pack.py:42"),
+            (FLETCHER, "src/repro_torch/csrc/fletcher.cu",
+             "src/repro/kernels/fletcher/fletcher.py:39"),
+            (ROUTE_CHUNKS, "src/repro_torch/csrc/route_chunks.cu",
+             "src/repro/kernels/chunk_router/chunk_router.py:68")):
         t = times[c.name]
         rows.append({"name": c.name, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": deploy["launches"][c.name],
+                     "launches": launches[c.name],
                      "max_abs_err": err[c.name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],

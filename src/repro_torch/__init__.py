@@ -1,13 +1,15 @@
-"""Proteus burst-buffer data plane in PyTorch, with hand-written CUDA kernels.
+"""Proteus burst buffer in PyTorch, with hand-written CUDA kernels.
 
 The PyTorch/CUDA twin of the JAX package ``repro``: the same stacked
-burst-buffer engine (``core/``), driven by the same ``BBClient`` facade, with
-the two kernels of its hot path written by hand for Hopper (``kernels/``,
-sources in ``csrc/``).  It imports ``torch``, numpy and the standard library
-only: whatever pure-numpy code it shares with ``repro`` is kept as its own
-copy.
+burst-buffer engine (``core/``), driven by the same ``BBClient`` facade, and
+fault-tolerant training (``train/``, ``models/``, ``data/``, ``configs/``)
+with Proteus checkpoints (``checkpoint/``), with the kernels of both paths
+written by hand for Hopper (``kernels/``, sources in ``csrc/``).  It
+imports ``torch``, numpy and the standard library only: whatever
+pure-numpy code it shares with ``repro`` is kept as its own copy.
 
-Tables live on the CUDA card unless the caller names another device
+Tables and train state live on the CUDA card unless the caller names
+another device
 (``device="cpu"`` runs the plain PyTorch version of every kernel, which is
 how the tests hold the port against the JAX package).  With no device given
 and no card present, the entry points raise instead of falling back.

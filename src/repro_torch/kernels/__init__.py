@@ -12,8 +12,10 @@ plain version.
 Kernels (one subpackage each, mirroring ``repro.kernels``):
 
 * ``chunk_router`` — ``dest_histogram2d``: per-row destination histogram of
-  the exchange planner;
-* ``chunk_pack`` — ``pack_chunks``: the send-order row gather.
+  the exchange planner; ``route_chunks``: per-chunk destinations (and a
+  destination histogram) of the checkpoint store;
+* ``chunk_pack`` — ``pack_chunks``: the send-order row gather;
+* ``fletcher`` — ``fletcher``: per-chunk checksums of a checkpoint leaf.
 
 Each subpackage holds ``<name>.py`` (the CUDA wrapper and its launch
 count), ``ops.py`` (dispatch: the kernel for CUDA tensors, the plain
@@ -35,7 +37,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("dest_histogram2d", "pack_chunks")
+KERNELS = ("dest_histogram2d", "pack_chunks", "fletcher", "route_chunks")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,10 @@
-"""CUDA wrapper of the destination-histogram kernel (``csrc/dest_histogram2d.cu``).
+"""CUDA wrappers of the routing kernels: the destination histogram
+(``csrc/dest_histogram2d.cu``) and batched chunk routing
+(``csrc/route_chunks.cu``).
 
-Replaces ``repro.kernels.chunk_router.chunk_router.dest_histogram2d_kernel``;
-the source file's header says what bounds it and how it is built.
+They replace ``dest_histogram2d_kernel`` and ``route_chunks_kernel`` of
+``repro.kernels.chunk_router.chunk_router``; each source file's header says
+what bounds it and how it is built.
 """
 from __future__ import annotations
 
@@ -34,3 +37,35 @@ def dest_histogram2d(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
         return counts
     DEST_HISTOGRAM2D.launch(dest.data_ptr(), counts.data_ptr(), L, q, n_bins)
     return counts
+
+
+ROUTE_CHUNKS = CudaKernel(
+    "route_chunks",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+
+
+def route_chunks(path_hash: torch.Tensor, chunk_id: torch.Tensor,
+                 client: torch.Tensor, *, mode: int, n_nodes: int):
+    """(n,) int32 CUDA descriptors → (dest (n,), counts (n_nodes,)) int32
+    (kernel).
+
+    Modes 1 and 4 send a chunk to its ``client``; any other mode to the
+    FNV mix of (path_hash, chunk_id) mod ``n_nodes``.  Destinations outside
+    [0, n_nodes) are counted nowhere.  Raises on CPU tensors, other dtypes,
+    mismatched lengths or non-contiguous input.
+    """
+    check_cuda("path_hash", path_hash, (torch.int32,), 1)
+    check_cuda("chunk_id", chunk_id, (torch.int32,), 1, path_hash.device)
+    check_cuda("client", client, (torch.int32,), 1, path_hash.device)
+    n = path_hash.numel()
+    if chunk_id.numel() != n or client.numel() != n:
+        raise ValueError("path_hash, chunk_id and client differ in length")
+    if n_nodes < 1 or n_nodes > 50000:
+        raise ValueError(f"n_nodes must lie in [1, 50000], got {n_nodes}")
+    dest = torch.empty(n, dtype=torch.int32, device=path_hash.device)
+    counts = torch.empty(n_nodes, dtype=torch.int32, device=path_hash.device)
+    ROUTE_CHUNKS.launch(path_hash.data_ptr(), chunk_id.data_ptr(),
+                        client.data_ptr(), dest.data_ptr(), counts.data_ptr(),
+                        n, int(mode), n_nodes)
+    return dest, counts

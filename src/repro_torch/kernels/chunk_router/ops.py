@@ -1,11 +1,13 @@
-"""Engine entry point of the destination histogram: kernel on CUDA, plain
-version on the CPU (the twin of ``repro.kernels.chunk_router.ops``)."""
+"""Entry points of the routing kernels: kernel on CUDA, plain version on the
+CPU (the twin of ``repro.kernels.chunk_router.ops``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.chunk_router import chunk_router as cuda
 from repro_torch.kernels.chunk_router.chunk_router import dest_histogram2d
-from repro_torch.kernels.chunk_router.ref import dest_histogram2d_ref
+from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
+                                                  route_chunks_ref)
 
 
 def histogram_rows2d(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
@@ -21,3 +23,22 @@ def histogram_rows2d(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     if dest.device.type == "cpu":
         return dest_histogram2d_ref(dest, n_bins=n_bins)
     raise ValueError(f"histogram_rows2d: unsupported device {dest.device}")
+
+
+def route_chunks(path_hash: torch.Tensor, chunk_id: torch.Tensor,
+                      client: torch.Tensor, *, mode: int, n_nodes: int):
+    """Destinations and per-destination counts of a batch of chunk
+    descriptors: (n,) int32 each → ((n,), (n_nodes,)) int32.
+
+    A CUDA batch goes through the ``route_chunks`` kernel (or raises), a
+    CPU batch through the bit-identical plain version.  The checkpoint
+    store routes each leaf's chunks with one call, on save and on restore.
+    """
+    if path_hash.is_cuda:
+        return cuda.route_chunks(path_hash, chunk_id, client, mode=mode,
+                                 n_nodes=n_nodes)
+    if path_hash.device.type == "cpu":
+        return route_chunks_ref(path_hash, chunk_id, client, mode=mode,
+                                n_nodes=n_nodes)
+    raise ValueError(f"route_chunks: unsupported device "
+                     f"{path_hash.device}")

@@ -1,7 +1,9 @@
-"""Plain PyTorch version of the destination histogram (the kernel's oracle)."""
+"""Plain PyTorch versions of the routing kernels (the kernels' oracles)."""
 from __future__ import annotations
 
 import torch
+
+_MASK31 = 0x7FFFFFFF
 
 
 def dest_histogram2d_ref(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
@@ -12,3 +14,30 @@ def dest_histogram2d_ref(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     """
     bins = torch.arange(n_bins, dtype=dest.dtype, device=dest.device)
     return (dest[..., None] == bins).sum(dim=1, dtype=torch.int32)
+
+
+def mix_hash_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The FNV-style mix of the reference's ``mix_hash_i32`` on int32
+    tensors → non-negative int32.  The 31-bit mask after every step keeps
+    the int64 product below 2⁵⁶, so its low 32 bits are the uint32
+    product's."""
+    h = 0x811C9DC5
+    for part in (a, b):
+        h = ((h ^ (part.to(torch.int64) & 0xFFFFFFFF)) * 16777619) & _MASK31
+        h = h ^ (h >> 15)
+    return (h & _MASK31).to(torch.int32)
+
+
+def route_chunks_ref(path_hash: torch.Tensor, chunk_id: torch.Tensor,
+                     client: torch.Tensor, *, mode: int, n_nodes: int):
+    """(n,) descriptors → (dest (n,), counts (n_nodes,)) int32.
+
+    Modes 1/4 → ``client``; otherwise the mix mod ``n_nodes``.  Counts are
+    per destination; destinations outside [0, n_nodes) count nowhere.
+    """
+    if mode in (1, 4):
+        dest = client.to(torch.int32)
+    else:
+        dest = (mix_hash_i32(path_hash, chunk_id) % n_nodes).to(torch.int32)
+    counts = dest_histogram2d_ref(dest[None], n_bins=n_nodes)[0]
+    return dest, counts

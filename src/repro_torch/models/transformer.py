@@ -1,0 +1,203 @@
+"""Decoder LM for the dense family (twin of ``repro.models.transformer``).
+
+Layer stacks are *segmented*: contiguous runs of identically-structured
+layers (gemma3's 5:1 local:global pattern gives nine) keep their parameters
+stacked on a leading layer axis under ``seg{i}_{kind}``, as in the JAX
+package, so checkpoint leaves match it one for one.  The reference scans a
+segment; here a Python loop runs its layers, each recomputed in the
+backward pass when ``cfg.remat`` is set (as ``jax.checkpoint`` does there).
+
+The model is functional like the reference: ``forward`` and ``loss_fn``
+take the parameter tree as an argument and never modify it, so a training
+step can be redone from the same parameters.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as nnl
+from repro_torch.models.param import (count_params, materialize, norm_scale,
+                                      stack_layers)
+
+Z_LOSS = 1e-4
+LOSS_SEQ_CHUNKS = 4
+
+
+# ---------------------------------------------------------------------------
+# layer kinds & segments
+# ---------------------------------------------------------------------------
+def layer_kind_list(cfg: ModelConfig) -> List[str]:
+    if cfg.layer_kinds is not None:
+        return list(cfg.layer_kinds)
+    return ["full"] * cfg.num_layers
+
+
+def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """[(kind, count), ...] contiguous runs."""
+    segs: List[Tuple[str, int]] = []
+    for k in layer_kind_list(cfg):
+        if segs and segs[-1][0] == k:
+            segs[-1] = (k, segs[-1][1] + 1)
+        else:
+            segs.append((k, 1))
+    return segs
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.window_size if kind in ("local", "swa") else 0
+
+
+# ---------------------------------------------------------------------------
+# one transformer layer
+# ---------------------------------------------------------------------------
+def describe_layer(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {"ln_attn": norm_scale(d), "ln_mlp": norm_scale(d),
+            "attn": attn.describe_attention(cfg),
+            "mlp": nnl.describe_mlp(cfg, cfg.d_ff)}
+
+
+def apply_layer(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, kind: str) -> torch.Tensor:
+    zero_c = cfg.family == "dense" and cfg.embed_scale   # gemma
+    h = nnl.rms_norm(x, params["ln_attn"], cfg.norm_eps, zero_centered=zero_c)
+    x = x + attn.apply_attention(params["attn"], h, positions, cfg,
+                                 window=_window(cfg, kind))
+    h = nnl.rms_norm(x, params["ln_mlp"], cfg.norm_eps, zero_centered=zero_c)
+    return x + nnl.apply_mlp(params["mlp"], h, cfg)
+
+
+def _layer_slice(tree, j: int):
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, j) for k, v in tree.items()}
+    return tree[j]
+
+
+def describe_stack(cfg: ModelConfig) -> dict:
+    return {f"seg{i}_{kind}": stack_layers(describe_layer(cfg), n)
+            for i, (kind, n) in enumerate(segments(cfg))}
+
+
+def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    for i, (kind, n) in enumerate(segments(cfg)):
+        seg = params[f"seg{i}_{kind}"]
+        for j in range(n):
+            p_j = _layer_slice(seg, j)
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(apply_layer, p_j, x, positions, cfg, kind,
+                               use_reentrant=False)
+            else:
+                x = apply_layer(p_j, x, positions, cfg, kind)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# whole LM
+# ---------------------------------------------------------------------------
+class TransformerLM(nn.Module):
+    """Dense decoder LM; parameters are an explicit nested dict of tensors
+    in the JAX package's layout (see ``describe``)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.family != "dense" or cfg.is_moe:
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
+        self.cfg = cfg
+
+    # ---- parameters -------------------------------------------------------
+    def describe(self) -> dict:
+        cfg = self.cfg
+        return {"embed": nnl.describe_embedding(cfg),
+                "stack": describe_stack(cfg),
+                "ln_f": norm_scale(cfg.d_model)}
+
+    def init(self, seed: int, device=None) -> Dict:
+        return materialize(seed, self.describe(), self.cfg.param_dtype,
+                           device)
+
+    def param_count(self) -> int:
+        return count_params(self.describe())
+
+    # ---- forward ----------------------------------------------------------
+    def _trunk(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = nnl.embed_tokens(params["embed"], tokens, cfg)
+        S = tokens.shape[1]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None, :]
+        x = apply_stack(params["stack"], x, positions, cfg)
+        return nnl.rms_norm(x, params["ln_f"], cfg.norm_eps,
+                            zero_centered=cfg.embed_scale)
+
+    def forward(self, params: dict, batch: dict
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward. Returns (logits (B,S,V), aux_loss)."""
+        x = self._trunk(params, batch["tokens"])
+        logits = nnl.unembed(params["embed"], x, self.cfg)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+
+    def loss_fn(self, params: dict, batch: dict
+                ) -> Tuple[torch.Tensor, dict]:
+        x = self._trunk(params, batch["tokens"])
+        loss, metrics = chunked_ce_loss(params["embed"], x, batch["targets"],
+                                        self.cfg,
+                                        loss_mask=batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        total = loss + aux
+        metrics["aux_loss"] = aux
+        metrics["loss"] = total
+        return total, metrics
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def _ce_chunk(embed_params: dict, x: torch.Tensor, t: torch.Tensor,
+              m: torch.Tensor, cfg: ModelConfig):
+    logits = nnl.unembed(embed_params, x, cfg).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        valid = torch.arange(cfg.padded_vocab, device=x.device) < \
+            cfg.vocab_size
+        logits = logits.masked_fill(~valid, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    return ((lse - gold) * m).sum(), (lse.square() * m).sum(), m.sum()
+
+
+def chunked_ce_loss(embed_params: dict, x: torch.Tensor,
+                    targets: torch.Tensor, cfg: ModelConfig,
+                    loss_mask: Optional[torch.Tensor] = None,
+                    n_chunks: int = LOSS_SEQ_CHUNKS
+                    ) -> Tuple[torch.Tensor, dict]:
+    """Cross-entropy + z-loss over sequence chunks (the float32 logits of
+    one chunk at a time); padded-vocab logits are masked with -1e30."""
+    B, S, _ = x.shape
+    n_chunks = max(1, min(n_chunks, S))
+    while S % n_chunks:
+        n_chunks -= 1
+    Sc = S // n_chunks
+    if loss_mask is None:
+        loss_mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    loss_sum, z_sum, count = zero, zero, zero
+    for c in range(n_chunks):
+        sl = slice(c * Sc, (c + 1) * Sc)
+        args = (embed_params, x[:, sl], targets[:, sl], loss_mask[:, sl], cfg)
+        if cfg.remat and torch.is_grad_enabled():
+            nll, z, m = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            nll, z, m = _ce_chunk(*args)
+        loss_sum, z_sum, count = loss_sum + nll, z_sum + z, count + m
+    count = torch.clamp(count, min=1.0)
+    ce = loss_sum / count
+    zl = Z_LOSS * z_sum / count
+    return ce + zl, {"ce": ce, "z_loss": zl, "tokens": count}

@@ -1,0 +1,58 @@
+"""The training step factory (twin of ``repro.train.train_step``)."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models.param import (build_tree, get_path, iter_leaves,
+                                      map_tree)
+from repro_torch.train.optimizer import AdamW, AdamWState, apply_updates
+
+
+def _value_and_grad(model, params, batch):
+    """(grads, metrics) of ``model.loss_fn`` at ``params``.  The leaves are
+    detached aliases, so ``params`` itself is neither modified nor made
+    part of a graph."""
+    leaves = map_tree(lambda p: p.detach().requires_grad_(True), params)
+    loss, metrics = model.loss_fn(leaves, batch)
+    paths, flat = zip(*iter_leaves(leaves))
+    by_path = dict(zip(paths, torch.autograd.grad(loss, flat)))
+    return (build_tree(leaves, by_path.__getitem__),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def make_train_step(model, optimizer: AdamW,
+                    microbatches: int = 1) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, a pure function of its arguments: it returns new tensors
+    and modifies none it is given.
+
+    ``microbatches > 1`` accumulates float32 gradients over equal batch
+    slices in order and averages them; the metrics are the last slice's.
+    """
+
+    def grads_of(params, batch):
+        if microbatches == 1:
+            return _value_and_grad(model, params, batch)
+        acc = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        metrics = None
+        for i in range(microbatches):
+            mb = {k: v[i * (v.shape[0] // microbatches):
+                       (i + 1) * (v.shape[0] // microbatches)]
+                  for k, v in batch.items()}
+            g, metrics = _value_and_grad(model, params, mb)
+            acc = build_tree(acc, lambda path: get_path(acc, path) +
+                             get_path(g, path))
+        return map_tree(lambda a: a / microbatches, acc), metrics
+
+    def train_step(params, opt_state: AdamWState, batch):
+        grads, metrics = grads_of(params, batch)
+        updates, opt_state, opt_metrics = optimizer.update(
+            grads, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step
+

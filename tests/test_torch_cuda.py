@@ -9,9 +9,17 @@ import torch
 from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS, pack_chunks
 from repro_torch.kernels.chunk_pack.ops import gather_rows
 from repro_torch.kernels.chunk_pack.ref import pack_chunks_ref
-from repro_torch.kernels.chunk_router.chunk_router import DEST_HISTOGRAM2D
-from repro_torch.kernels.chunk_router.ops import histogram_rows2d
-from repro_torch.kernels.chunk_router.ref import dest_histogram2d_ref
+from repro_torch.kernels.chunk_router.chunk_router import (DEST_HISTOGRAM2D,
+                                                          ROUTE_CHUNKS)
+from repro_torch.kernels.chunk_router.chunk_router import \
+    route_chunks as route_chunks_cuda
+from repro_torch.kernels.chunk_router.ops import (histogram_rows2d,
+                                                  route_chunks)
+from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
+                                                  route_chunks_ref)
+from repro_torch.kernels.fletcher.fletcher import FLETCHER, fletcher_chunks
+from repro_torch.kernels.fletcher.ops import chunk_checksums
+from repro_torch.kernels.fletcher.ref import fletcher_chunks_ref
 
 RNG = np.random.RandomState(7)
 
@@ -59,3 +67,89 @@ def test_cuda_pack_out_of_range_id_gives_zero_row(cuda):
     idx = torch.tensor([0, 4, 99, -7], dtype=torch.int32, device=cuda)
     got = pack_chunks(payload, idx).cpu()
     assert got[0].eq(1).all() and got[1:].eq(0).all()
+
+
+def _words(n, cuda):
+    w = RNG.randint(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64).astype(np.int32)
+    if n:
+        w[RNG.randint(0, n, max(1, n // 50))] = -2 ** 31   # float -0.0
+        w[RNG.randint(0, n, max(1, n // 50))] = 2 ** 31 - 1
+    return torch.as_tensor(w, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,chunk", [(0, 65536), (1, 65536), (1000, 1000),
+                                     (1001, 1000), (65536 * 3 + 17, 65536),
+                                     (65536 * 2, 65536), (300001, 300001),
+                                     (5, 1), (1 << 20, 1 << 20)])
+def test_cuda_fletcher_matches_plain(cuda, n, chunk):
+    words = _words(n, cuda)
+    before = FLETCHER.launches
+    got = chunk_checksums(words, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fletcher_chunks_ref(words, chunk))
+    assert FLETCHER.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [65536, 1000])
+def test_cuda_fletcher_unaligned_view(cuda, chunk):
+    """A view starting 12 bytes past an aligned base takes the 4-byte
+    load path."""
+    words = _words(70003, cuda)[3:]
+    assert torch.equal(fletcher_chunks(words, chunk),
+                       fletcher_chunks_ref(words, chunk))
+
+
+def test_fletcher_kernel_wrapper_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        fletcher_chunks(torch.zeros(4, dtype=torch.int32), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,nodes", [(1, 32), (1000, 64), (45770, 32),
+                                     (45770, 64), (3, 20000)])
+def test_cuda_route_chunks_matches_plain(cuda, mode, n, nodes):
+    ph = torch.as_tensor(RNG.randint(0, 2 ** 31 - 1, n).astype(np.int32),
+                         device=cuda)
+    cid = torch.arange(n, dtype=torch.int32, device=cuda)
+    cl = torch.as_tensor(RNG.randint(-1, nodes + 2, n).astype(np.int32),
+                         device=cuda)
+    before = ROUTE_CHUNKS.launches
+    d, c = route_chunks(ph, cid, cl, mode=mode, n_nodes=nodes)
+    torch.cuda.synchronize()
+    rd, rc = route_chunks_ref(ph, cid, cl, mode=mode, n_nodes=nodes)
+    assert torch.equal(d, rd) and torch.equal(c, rc)
+    assert ROUTE_CHUNKS.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_route_chunks_rejects_mismatched_lengths(cuda):
+    z = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="length"):
+        route_chunks_cuda(z, z[:3], z, mode=3, n_nodes=8)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_roundtrip_goes_through_both_kernels(cuda, tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.layouts import LayoutMode
+    from repro_torch.core.policy import LayoutPolicy
+    policy = LayoutPolicy.from_scopes({"/bb/ckpt": LayoutMode.HYBRID},
+                                      n_nodes=32,
+                                      default=LayoutMode.CENTRAL_META)
+    state = {"w": torch.randn(3, 70001, device=cuda),
+             "b": torch.randn(5, 5, 5, device=cuda).to(torch.bfloat16),
+             "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    mgr = CheckpointManager(str(tmp_path), policy, async_save=True)
+    f0, r0 = FLETCHER.launches, ROUTE_CHUNKS.launches
+    mgr.save(1, state)
+    mgr.wait()
+    restored, step = mgr.restore(1, state)
+    assert step == 1
+    for k in state:
+        assert restored[k].is_cuda and restored[k].dtype == state[k].dtype
+        assert torch.equal(restored[k].reshape(-1).view(torch.uint8),
+                           state[k].reshape(-1).view(torch.uint8))
+    assert FLETCHER.launches == f0 + 6 and ROUTE_CHUNKS.launches == r0 + 6
