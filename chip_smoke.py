@@ -5,12 +5,24 @@ plane, then fault-tolerant training of gemma3-1b with Proteus checkpoints.
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which must succeed or the run fails without a result line:
 
-  (a) build the four hand-written kernels from ``src/repro_torch/csrc``
+  (a) build the six hand-written kernels from ``src/repro_torch/csrc``
       with nvcc for sm_90a, all sources compiled in parallel;
-  (b) each kernel against its plain PyTorch version on the card, bit for
-      bit, at the shapes its main path gives it and at sentinel and edge
-      shapes (``fletcher`` up to the full embedding leaf, 302 M words in
-      4608 chunks; ``route_chunks`` in all four modes);
+  (b) each kernel of the data plane and the checkpoint path against its
+      plain PyTorch version on the card, bit for bit, at the shapes its
+      main path gives it and at sentinel and edge shapes (``fletcher`` up
+      to the full embedding leaf, 302 M words in 4608 chunks;
+      ``route_chunks`` in all four modes);
+  (b2) the last two kernels through their entry points: ``flash_attention``
+      on gemma3-1b's global attention (layer 5 of the full-width
+      parameters; q/k/v from the port's own projections and RoPE on bf16
+      activations, B 4, S 1024, H 4, D 256, causal), held within 2e-2 of
+      the plain version and of the model's ``masked_attention(window=0)``;
+      ``histogram_rows`` on the 45,884 chunk destinations of one gemma3-1b
+      save (the checkpoint manager's routing, 32 nodes), bit for bit; both
+      launch counts (zeroed just before) above 0.  Then float32 causal and
+      full at that shape within 2e-5, the JAX sweep's shapes and ragged S,
+      the histogram's sweep, sentinels and 20000 bins; kernel, plain,
+      library (SDPA, ``bincount``) and bound times;
   (c) the deployment, through ``BBClient``: 32 burst-buffer nodes, 1 MiB
       chunks, the heterogeneous policy (``/bb/ckpt`` HYBRID, ``/bb/shared``
       DIST_HASH, default CENTRAL_META), 256 chunk slots and 1024 metadata
@@ -52,6 +64,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -62,10 +75,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and the
-# non-tensor-core fp32 rate used as the ceiling of simple integer ops
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, the
+# non-tensor-core fp32 rate (also the ceiling of simple integer ops), and
+# the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 SIMPLE_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 DEVICE = "cuda"
 N_NODES, CAP, MCAP, Q = 32, 256, 1024, 8
@@ -92,6 +107,13 @@ TRAIN_EXPECTED = {
                     "redone_steps": [1, 1]},
     "final_step": 5,
 }
+
+# (b2) the last two kernels: gemma3's first global layer (0-based), and the
+# reference's tolerances (tests/test_kernels.py): 2e-5 where both sides
+# compute in float32 and differ in summation order, 2e-2 where both round
+# a float32 result once to bf16
+GLOBAL_LAYER = 5
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 # SHA-256 digests pinned by the JAX package's tests (tests/test_policy.py,
 # SEED_DIGESTS: the seed engine's outputs for the fixed trace of
@@ -137,8 +159,9 @@ def phase_build(kernels) -> None:
         check(lib.exists(), f"{name}: no library after the build")
         log(f"[build] {name} -> build/{lib.name}")
         for line in reports.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build]   {line.strip()}")
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "entry function" in line):
+                log(f"[build]   {line.strip()[:140]}")
     log(f"[build] {len(kernels.KERNELS)} kernels in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, in parallel)")
 
@@ -341,6 +364,246 @@ def phase_checkpoint_kernels_vs_plain(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# (b2) the last two kernels through their entry points
+# ---------------------------------------------------------------------------
+def global_layer_qkv(cfg, params: dict, seed: int):
+    """q, k, v (B, S, H, D) of gemma3's first global layer at the training
+    batch: the layer's norm, projections and RoPE (the port's own
+    ``project_qkv``) on bf16 activations made from the seed; k and v are
+    GQA-expanded from the one kv head to 4."""
+    from repro_torch.models import layers as nnl
+    from repro_torch.models.attention import project_qkv
+    from repro_torch.models.transformer import (_layer_slice,
+                                                layer_kind_list, segments)
+    check(layer_kind_list(cfg)[GLOBAL_LAYER] == "global",
+          f"layer {GLOBAL_LAYER} of {cfg.name} is not global")
+    first = 0
+    for i, (kind, n) in enumerate(segments(cfg)):
+        if first <= GLOBAL_LAYER < first + n:
+            layer = _layer_slice(params["stack"][f"seg{i}_{kind}"],
+                                 GLOBAL_LAYER - first)
+            break
+        first += n
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device=DEVICE,
+                    generator=gen).to(torch.bfloat16)
+    h = nnl.rms_norm(x, layer["ln_attn"], cfg.norm_eps, zero_centered=True)
+    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=DEVICE)[None, :]
+    return project_qkv(layer["attn"], h, pos, cfg)
+
+
+def save_destinations(cfg) -> torch.Tensor:
+    """The destinations ``route_chunks`` gives every chunk of one gemma3-1b
+    save under the deployment policy, leaf after leaf, concatenated: the
+    checkpoint manager's own routing over the train state's leaves (shapes
+    only: the state is made of meta tensors)."""
+    from repro_torch.checkpoint.manager import (CHUNK_WORDS,
+                                                CheckpointManager,
+                                                flatten_state)
+    from repro_torch.kernels.fletcher.ops import as_words
+    from repro_torch.kernels.fletcher.ref import n_chunks_of
+    from repro_torch.models.param import map_tree, torch_dtype
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import AdamW
+    params = map_tree(lambda p: torch.empty(p.shape, device="meta",
+                                            dtype=torch_dtype(
+                                                p.dtype or cfg.param_dtype)),
+                      build_model(cfg).describe())
+    state = (params, AdamW().init(params),
+             torch.zeros(2, dtype=torch.int32, device="meta"))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, deployment_policy(), async_save=False)
+        dests = []
+        for key, t in flatten_state(state):
+            nc = n_chunks_of(as_words(t).numel(), CHUNK_WORDS)
+            cids = torch.arange(nc, dtype=torch.int32, device=DEVICE)
+            dests.append(mgr._route(f"{mgr.scope}/{TRAIN_STEPS}/{key}", cids))
+    return torch.cat(dests)
+
+
+def attention_flops(B: int, S: int, H: int, D: int, causal: bool) -> float:
+    """Multiply-adds ×2 of QKᵀ and PV over the (query, key) pairs the mask
+    keeps: S(S+1)/2 of them causal, S² full."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4.0 * B * H * D * pairs
+
+
+def phase_last_kernels(seed: int, counters) -> dict:
+    """This slice's path: ``flash_attention`` and ``histogram_rows`` at the
+    shapes the port's paths give them, then checks and times."""
+    import torch.nn.functional as F
+    from repro_torch.configs import all_configs
+    from repro_torch.kernels.chunk_router.ops import histogram_rows
+    from repro_torch.kernels.chunk_router.ref import dest_histogram_ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.attention import masked_attention
+    from repro_torch.models.registry import build_model
+    # the plain versions' products in full float32 (the card's default,
+    # stated and set here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed)
+    err, times = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = all_configs()[TRAIN_ARCH]
+    params = build_model(cfg).init(seed)
+    q, k, v = global_layer_qkv(cfg, params, seed)
+    del params
+    torch.cuda.empty_cache()
+    dest = save_destinations(cfg)
+    B, S, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    s00 = (q[0, :, 0].float() @ k[0, :, 0].float().T) * scale
+    s00 = s00.masked_fill(~torch.ones_like(s00, dtype=torch.bool).tril(),
+                          -1e30)
+    top = torch.softmax(s00, dim=-1).max(dim=-1).values.mean()
+    log(f"[last] flash_attention input: layer {GLOBAL_LAYER} of {cfg.name}, "
+        f"q/k/v {tuple(q.shape)} {q.dtype} (batch 0, head 0: causal score "
+        f"std {s00[s00 > -1e29].std():.1f}, mean top probability "
+        f"{top:.4f}); histogram input: {dest.numel()} chunk destinations "
+        f"of one save, {N_NODES} nodes")
+    del s00
+
+    # the main path, through the entry points
+    for c in counters:
+        c.launches = 0
+    out = flash_attention(q, k, v, causal=True)
+    counts = histogram_rows(dest, n_bins=N_NODES)
+    torch.cuda.synchronize()
+    launches = {c.name: c.launches for c in counters}
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on this slice's path")
+    log(f"[last] launches on this slice's path: {launches}")
+
+    def close(label, got, want, tol, quiet=False):
+        e = max_abs_err(got, want)
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"flash_attention {label}: max_abs_err {e} beyond {tol}")
+        if not quiet:
+            log(f"[last] flash_attention {label}: within {tol} "
+                f"(max_abs_err {e})")
+        return e
+
+    plain = flash_attention_ref(q, k, v, scale=scale, causal=True)
+    err["flash_attention"] = close("main path vs plain (bf16, causal)",
+                                   out, plain, ATTN_TOL[torch.bfloat16])
+    close("main path vs masked_attention(window=0)", out,
+          masked_attention(q, k, v, window=0, scale=scale),
+          ATTN_TOL[torch.bfloat16])
+    del plain
+    ref_counts = dest_histogram_ref(dest, n_bins=N_NODES)
+    err["dest_histogram"] = max_abs_err(counts, ref_counts)
+    check(torch.equal(counts, ref_counts) and
+          int(counts.sum()) == dest.numel(),
+          "dest_histogram on the save's destinations differs")
+    log(f"[last] dest_histogram main path: equal (max_abs_err "
+        f"{err['dest_histogram']}); counts {counts.tolist()}")
+
+    # float32 at the same shape: unit-normal q/k/v (the reference init's
+    # layer-5 scores reach ~1e3, where float32 rounding of the scores alone
+    # moves a near-tie's softmax past 2e-5; that is conditioning, not the
+    # kernel), then the JAX sweep's shapes and ragged S
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+    f32 = [torch.randn((B, S, H, D), device=dev, generator=gen)
+           for _ in range(3)]
+    for causal in (True, False):
+        close(f"float32 {'causal' if causal else 'full'} {(B, S, H, D)}",
+              flash_attention(*f32, causal=causal),
+              flash_attention_ref(*f32, scale=scale, causal=causal),
+              ATTN_TOL[torch.float32])
+    for shape in ((2, 128, 2, 64), (1, 256, 4, 64), (2, 96, 3, 80),
+                  (1, 512, 1, 128), (2, 96, 2, 256), (1, 1000, 2, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                x = [torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                                     device=dev).to(dtype) for _ in range(3)]
+                close(f"{shape} {dtype} causal={causal}",
+                      flash_attention(*x, causal=causal),
+                      flash_attention_ref(*x, scale=shape[3] ** -0.5,
+                                          causal=causal),
+                      ATTN_TOL[dtype], quiet=True)
+    log("[last] flash_attention sweep (2,128,2,64) (1,256,4,64) (2,96,3,80) "
+        "(1,512,1,128) (2,96,2,256) (1,1000,2,256) x f32/bf16 x "
+        "causal/full: within tolerance")
+
+    def hist_case(label, d, n_bins):
+        got = histogram_rows(d, n_bins=n_bins)
+        torch.cuda.synchronize()
+        check(torch.equal(got, dest_histogram_ref(d, n_bins=n_bins)),
+              f"dest_histogram {label} n={d.numel()} n_bins={n_bins} "
+              f"differs")
+
+    for n in (0, 8, 100, 1024, 4097):
+        for nb in (4, 33):
+            hist_case("sweep", torch.as_tensor(
+                rng.randint(-1, nb + 2, n).astype(np.int32), device=dev), nb)
+    micro = torch.as_tensor(rng.randint(-1, 64, 4096).astype(np.int32),
+                            device=dev)
+    hist_case("microbench 4096 -> 64", micro, 64)
+    hist_case("20000 bins", torch.as_tensor(
+        rng.randint(-1, 20002, 100000).astype(np.int32), device=dev), 20000)
+    hist_case("all sentinel", torch.full((5000,), -1, dtype=torch.int32,
+                                         device=dev), 33)
+    log("[last] dest_histogram sweep n 0/8/100/1024/4097 x bins 4/33, "
+        "4096 -> 64, 100000 -> 20000, all sentinel: equal")
+
+    # times (card and power limit printed at the end)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+    t_p = cuda_ms(lambda: flash_attention_ref(q, k, v, scale=scale,
+                                              causal=True), 5)
+    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True), 20)
+    nbytes = 4 * q.numel() * q.element_size()
+    b, by = bound_ms(nbytes, attention_flops(B, S, H, D, True),
+                     BF16_TENSOR_OPS_PER_S)
+    times["flash_attention"] = dict(
+        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
+        shape=f"{(B, S, H, D)} bf16 causal, bound at the bf16 tensor-core "
+              f"peak; library: scaled_dot_product_attention")
+    f32t = [a.transpose(1, 2) for a in f32]
+    t32 = cuda_ms(lambda: flash_attention(*f32, causal=True), 10)
+    t32p = cuda_ms(lambda: flash_attention_ref(*f32, scale=scale,
+                                               causal=True), 5)
+    t32l = cuda_ms(lambda: F.scaled_dot_product_attention(*f32t,
+                                                          is_causal=True), 10)
+    t32f = cuda_ms(lambda: flash_attention(*f32, causal=False), 10)
+    b32, by32 = bound_ms(4 * f32[0].numel() * 4,
+                         attention_flops(B, S, H, D, True))
+    log(f"[time] flash_attention float32 causal {(B, S, H, D)}: kernel "
+        f"{t32:.4f} ms, plain {t32p:.4f} ms, SDPA {t32l:.4f} ms, bound "
+        f"{b32:.4f} ms ({by32}, float32 SIMT peak), {b32 / t32:.3f} of "
+        f"bound; full (no mask) {t32f:.4f} ms")
+    del f32, f32t
+
+    nb = N_NODES
+    t_k = device_ms(lambda: histogram_rows(dest, n_bins=nb), 50)
+    t_p = device_ms(lambda: dest_histogram_ref(dest, n_bins=nb), 50)
+    t_l = device_ms(lambda: torch.bincount(dest, minlength=nb), 50)
+    log(f"[time] dest_histogram back to back through the entry point: "
+        f"{cuda_ms(lambda: histogram_rows(dest, n_bins=nb), 200):.4f} ms a "
+        f"call (host launch rate); microbench 4096 -> 64: "
+        f"{device_ms(lambda: histogram_rows(micro, n_bins=64), 50):.5f} ms "
+        f"device")
+    b, by = bound_ms(dest.numel() * 4 + nb * 4, dest.numel())
+    times["dest_histogram"] = dict(
+        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
+        shape=f"{dest.numel()} save destinations -> {nb} bins, device time; "
+              f"library: bincount on this sentinel-free input")
+    for name in ("flash_attention", "dest_histogram"):
+        r = times[name]
+        log(f"[time] {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['ms']:.3f} of bound")
+    log(f"[last] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return {"err": err, "times": times, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # (c) the deployment through BBClient
 # ---------------------------------------------------------------------------
 def phase_deployment(seed: int, counters) -> dict:
@@ -516,9 +779,10 @@ def host_ms(fn, reps: int) -> float:
     return best
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = SIMPLE_OPS_PER_S):
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / SIMPLE_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -872,10 +1136,13 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS
     from repro_torch.kernels.chunk_router.chunk_router import (
-        DEST_HISTOGRAM2D, ROUTE_CHUNKS)
+        DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS)
     from repro_torch.kernels.fletcher.fletcher import FLETCHER
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        FLASH_ATTENTION
     counters = (DEST_HISTOGRAM2D, PACK_CHUNKS)
     ckpt_counters = (FLETCHER, ROUTE_CHUNKS)
+    last_counters = (FLASH_ATTENTION, DEST_HISTOGRAM)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     phase = "build"
@@ -884,13 +1151,19 @@ def main() -> int:
         phase = "kernels vs plain"
         err = phase_kernels_vs_plain(args.seed)
         err.update(phase_checkpoint_kernels_vs_plain(args.seed))
+        phase = "last kernels"
+        last = phase_last_kernels(args.seed, last_counters)
+        err.update(last["err"])
+        torch.cuda.empty_cache()
         phase = "deployment"
         deploy = phase_deployment(args.seed, counters)
         phase = "seed digests"
         phase_seed_digests()
         phase = "timings"
         times = phase_timings(args.seed, deploy)
+        times.update(last["times"])
         launches = dict(deploy["launches"])
+        launches.update(last["launches"])
         del deploy
         torch.cuda.empty_cache()
         phase = "train"
@@ -918,7 +1191,11 @@ def main() -> int:
             (FLETCHER, "src/repro_torch/csrc/fletcher.cu",
              "src/repro/kernels/fletcher/fletcher.py:39"),
             (ROUTE_CHUNKS, "src/repro_torch/csrc/route_chunks.cu",
-             "src/repro/kernels/chunk_router/chunk_router.py:68")):
+             "src/repro/kernels/chunk_router/chunk_router.py:68"),
+            (DEST_HISTOGRAM, "src/repro_torch/csrc/dest_histogram.cu",
+             "src/repro/kernels/chunk_router/chunk_router.py:107"),
+            (FLASH_ATTENTION, "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:72")):
         t = times[c.name]
         rows.append({"name": c.name, "route": "cuda", "source": src,
                      "replaces": replaces,

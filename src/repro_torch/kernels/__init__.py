@@ -12,10 +12,13 @@ plain version.
 Kernels (one subpackage each, mirroring ``repro.kernels``):
 
 * ``chunk_router`` — ``dest_histogram2d``: per-row destination histogram of
-  the exchange planner; ``route_chunks``: per-chunk destinations (and a
-  destination histogram) of the checkpoint store;
+  the exchange planner; ``dest_histogram``: destination histogram of one
+  vector (``histogram_rows``); ``route_chunks``: per-chunk destinations
+  (and a destination histogram) of the checkpoint store;
 * ``chunk_pack`` — ``pack_chunks``: the send-order row gather;
-* ``fletcher`` — ``fletcher``: per-chunk checksums of a checkpoint leaf.
+* ``fletcher`` — ``fletcher``: per-chunk checksums of a checkpoint leaf;
+* ``flash_attention`` — ``flash_attention``: blocked online-softmax
+  attention over (B, S, H, D) q/k/v.
 
 Each subpackage holds ``<name>.py`` (the CUDA wrapper and its launch
 count), ``ops.py`` (dispatch: the kernel for CUDA tensors, the plain
@@ -37,7 +40,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("dest_histogram2d", "pack_chunks", "fletcher", "route_chunks")
+KERNELS = ("dest_histogram2d", "pack_chunks", "fletcher", "route_chunks",
+           "dest_histogram", "flash_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,1 +1,2 @@
-from repro_torch.kernels.chunk_router.ops import histogram_rows2d  # noqa: F401
+from repro_torch.kernels.chunk_router.ops import (  # noqa: F401
+    histogram_rows, histogram_rows2d)

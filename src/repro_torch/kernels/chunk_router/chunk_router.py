@@ -1,10 +1,10 @@
-"""CUDA wrappers of the routing kernels: the destination histogram
-(``csrc/dest_histogram2d.cu``) and batched chunk routing
-(``csrc/route_chunks.cu``).
+"""CUDA wrappers of the routing kernels: the destination histograms of one
+vector (``csrc/dest_histogram.cu``) and per row (``csrc/dest_histogram2d.cu``)
+and batched chunk routing (``csrc/route_chunks.cu``).
 
-They replace ``dest_histogram2d_kernel`` and ``route_chunks_kernel`` of
-``repro.kernels.chunk_router.chunk_router``; each source file's header says
-what bounds it and how it is built.
+They replace ``dest_histogram_kernel``, ``dest_histogram2d_kernel`` and
+``route_chunks_kernel`` of ``repro.kernels.chunk_router.chunk_router``; each
+source file's header says what bounds it and how it is built.
 """
 from __future__ import annotations
 
@@ -13,6 +13,29 @@ import ctypes
 import torch
 
 from repro_torch.kernels import CudaKernel, check_cuda
+
+DEST_HISTOGRAM = CudaKernel(
+    "dest_histogram",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int])
+
+
+def dest_histogram(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
+    """(n,) int32 CUDA destinations → (n_bins,) int32 counts (kernel).
+
+    Values outside [0, n_bins) are counted nowhere; n = 0 gives zeros
+    without a launch.  Raises on CPU tensors, other dtypes or
+    non-contiguous input.
+    """
+    check_cuda("dest", dest, (torch.int32,), 1)
+    if n_bins < 0 or n_bins > 50000:
+        raise ValueError(f"n_bins must lie in [0, 50000], got {n_bins}")
+    n = dest.numel()
+    if n == 0 or n_bins == 0:
+        return torch.zeros(n_bins, dtype=torch.int32, device=dest.device)
+    counts = torch.empty(n_bins, dtype=torch.int32, device=dest.device)
+    DEST_HISTOGRAM.launch(dest.data_ptr(), counts.data_ptr(), n, n_bins)
+    return counts
+
 
 DEST_HISTOGRAM2D = CudaKernel(
     "dest_histogram2d",

@@ -5,9 +5,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.chunk_router import chunk_router as cuda
-from repro_torch.kernels.chunk_router.chunk_router import dest_histogram2d
+from repro_torch.kernels.chunk_router.chunk_router import (  # noqa: F401
+    dest_histogram, dest_histogram2d)
 from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
+                                                  dest_histogram_ref,
                                                   route_chunks_ref)
+
+
+def histogram_rows(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
+    """Per-destination counts of one vector: (n,) int32 → (n_bins,) int32.
+
+    A CUDA tensor goes through the ``dest_histogram`` kernel (or raises); a
+    CPU tensor through the bit-identical plain version.  Values outside
+    [0, n_bins) are counted nowhere.
+    """
+    if dest.is_cuda:
+        return dest_histogram(dest, n_bins=n_bins)
+    if dest.device.type == "cpu":
+        return dest_histogram_ref(dest, n_bins=n_bins)
+    raise ValueError(f"histogram_rows: unsupported device {dest.device}")
 
 
 def histogram_rows2d(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:

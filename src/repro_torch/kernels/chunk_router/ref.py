@@ -6,6 +6,15 @@ import torch
 _MASK31 = 0x7FFFFFFF
 
 
+def dest_histogram_ref(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
+    """(n,) destinations → (n_bins,) int32 counts: a bincount of the values
+    in [0, n_bins); the rest (the -1 sentinel, values past the last bin)
+    go to one extra bin that is dropped."""
+    inb = (dest >= 0) & (dest < n_bins)
+    idx = torch.where(inb, dest, n_bins).long()
+    return torch.bincount(idx, minlength=n_bins + 1)[:n_bins].to(torch.int32)
+
+
 def dest_histogram2d_ref(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     """(L, q) destinations → (L, n_bins) int32 per-row counts.
 

@@ -59,10 +59,10 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.to(q.dtype)
 
 
-def apply_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig, *, window: int = 0) -> torch.Tensor:
-    """(B, S, d) → (B, S, d).  ``window`` > 0 and < S makes the layer
-    sliding-window; otherwise it is full causal."""
+def project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig):
+    """(B, S, d) → q, k, v of (B, S, H, D) in x's dtype: the projections,
+    RoPE on q and k, and k/v GQA-expanded to H heads."""
     B, S, d = x.shape
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -71,7 +71,16 @@ def apply_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     v = (x @ params["wv"].to(dt).reshape(d, KV * D)).view(B, S, KV, D)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    kx, vx = repeat_kv(k, H // KV), repeat_kv(v, H // KV)
+    return q, repeat_kv(k, H // KV), repeat_kv(v, H // KV)
+
+
+def apply_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, *, window: int = 0) -> torch.Tensor:
+    """(B, S, d) → (B, S, d).  ``window`` > 0 and < S makes the layer
+    sliding-window; otherwise it is full causal."""
+    B, S, d = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    q, kx, vx = project_qkv(params, x, positions, cfg)
     o = masked_attention(q, kx, vx, window=window if window < S else 0,
                          scale=1.0 / math.sqrt(D))
-    return o.reshape(B, S, H * D) @ params["wo"].to(dt).reshape(H * D, d)
+    return o.reshape(B, S, H * D) @ params["wo"].to(x.dtype).reshape(H * D, d)

@@ -1,5 +1,7 @@
 """The port's hand-written kernels on a CUDA card (marker ``cuda``): each
-held against its plain PyTorch version, bit for bit, with its launch count.
+held against its plain PyTorch version, with its launch count: the integer
+kernels bit for bit, flash attention within the reference's tolerances
+(2e-5 in float32, 2e-2 in bf16, tests/test_kernels.py).
 Imports nothing of JAX, so it runs on the card:
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.  Skips elsewhere."""
 import numpy as np
@@ -9,14 +11,22 @@ import torch
 from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS, pack_chunks
 from repro_torch.kernels.chunk_pack.ops import gather_rows
 from repro_torch.kernels.chunk_pack.ref import pack_chunks_ref
-from repro_torch.kernels.chunk_router.chunk_router import (DEST_HISTOGRAM2D,
+from repro_torch.kernels.chunk_router.chunk_router import (DEST_HISTOGRAM,
+                                                          DEST_HISTOGRAM2D,
                                                           ROUTE_CHUNKS)
 from repro_torch.kernels.chunk_router.chunk_router import \
     route_chunks as route_chunks_cuda
-from repro_torch.kernels.chunk_router.ops import (histogram_rows2d,
+from repro_torch.kernels.chunk_router.ops import (histogram_rows,
+                                                  histogram_rows2d,
                                                   route_chunks)
 from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
+                                                  dest_histogram_ref,
                                                   route_chunks_ref)
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import (
+    FLASH_ATTENTION, flash_attention_bhsd)
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.fletcher.fletcher import FLETCHER, fletcher_chunks
 from repro_torch.kernels.fletcher.ops import chunk_checksums
 from repro_torch.kernels.fletcher.ref import fletcher_chunks_ref
@@ -153,3 +163,79 @@ def test_cuda_checkpoint_roundtrip_goes_through_both_kernels(cuda, tmp_path):
         assert torch.equal(restored[k].reshape(-1).view(torch.uint8),
                            state[k].reshape(-1).view(torch.uint8))
     assert FLETCHER.launches == f0 + 6 and ROUTE_CHUNKS.launches == r0 + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 8, 100, 4097, 45770, 1 << 22])
+@pytest.mark.parametrize("n_bins", [4, 33, 20000])
+def test_cuda_dest_histogram_matches_plain(cuda, n, n_bins):
+    dest = torch.as_tensor(RNG.randint(-1, n_bins + 2, n).astype(np.int32),
+                           device=cuda)
+    before = DEST_HISTOGRAM.launches
+    got = histogram_rows(dest, n_bins=n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dest_histogram_ref(dest, n_bins=n_bins))
+    assert DEST_HISTOGRAM.launches == before + (n > 0)
+
+
+@pytest.mark.cuda
+def test_cuda_dest_histogram_all_sentinel_counts_nothing(cuda):
+    dest = torch.full((10000,), -1, dtype=torch.int32, device=cuda)
+    dest[::3] = 33
+    assert not histogram_rows(dest, n_bins=33).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("S", [96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_matches_plain(cuda, D, S, dtype, causal):
+    """S = 96 leaves a ragged last tile of queries and keys."""
+    q, k, v = (torch.as_tensor(RNG.randn(2, S, 3, D).astype(np.float32),
+                               device=cuda).to(dtype) for _ in range(3))
+    before = FLASH_ATTENTION.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    want = flash_attention_ref(q, k, v, scale=D ** -0.5, causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_gemma_global_shape(cuda, dtype):
+    """B 4, S 1024, H 4, D 256: gemma3-1b's global layers at the training
+    batch."""
+    q, k, v = (torch.randn((4, 1024, 4, 256), device=cuda).to(dtype)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, scale=1 / 16, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_any_strides(cuda):
+    """Contiguous (BH, S, D)-style views and a sliced head dim's neighbours:
+    the kernel follows each tensor's own strides."""
+    q, k, v = (torch.randn((2, 3, 130, 64), device=cuda) for _ in range(3))
+    kt = torch.randn((2, 130, 3, 64), device=cuda).transpose(1, 2)
+    got = flash_attention_bhsd(q, kt, v, scale=0.125, causal=True)
+    assert got.is_contiguous()
+    want = attention_ref(q.reshape(6, 130, 64), kt.reshape(6, 130, 64),
+                         v.reshape(6, 130, 64), scale=0.125, causal=True)
+    torch.testing.assert_close(got.reshape(6, 130, 64), want, atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_unsupported_input(cuda):
+    x = torch.zeros((1, 64, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(x, x, x)
+    y = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(y, y.to(torch.bfloat16), y)

@@ -10,17 +10,33 @@ import torch
 from repro.kernels.chunk_pack.ref import gather_rows_batched_ref as j_gbr
 from repro.kernels.chunk_pack.ref import pack_chunks_ref as j_pack_ref
 from repro.kernels.chunk_router.chunk_router import dest_histogram2d_kernel
+from repro.kernels.chunk_router.ops import dest_histogram as j_dest_histogram
 from repro.kernels.chunk_router.ref import dest_histogram2d_ref as j_hist_ref
+from repro.kernels.chunk_router.ref import \
+    dest_histogram_ref as j_hist1d_ref
 from repro_torch import kernels
 from repro_torch.kernels.chunk_pack.chunk_pack import pack_chunks
 from repro_torch.kernels.chunk_pack.ops import gather_rows, gather_rows_batched
 from repro_torch.kernels.chunk_pack.ref import (gather_rows_batched_ref,
                                                 pack_chunks_ref)
-from repro_torch.kernels.chunk_router.chunk_router import dest_histogram2d
-from repro_torch.kernels.chunk_router.ops import histogram_rows2d
-from repro_torch.kernels.chunk_router.ref import dest_histogram2d_ref
+from repro_torch.kernels.chunk_router.chunk_router import (dest_histogram,
+                                                          dest_histogram2d)
+from repro_torch.kernels.chunk_router.ops import (histogram_rows,
+                                                  histogram_rows2d)
+from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
+                                                  dest_histogram_ref)
 
 RNG = np.random.RandomState(7)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The shapes here are small: torch's default of a thread per core only
+    spins against JAX's pool and the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +67,45 @@ def test_histogram_plain_edges(shape, n_bins):
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(j_hist_ref(jnp.asarray(dest),
                                            n_bins=n_bins)).reshape(got.shape))
+
+
+@pytest.mark.parametrize("n", [8, 100, 1024, 4097])
+@pytest.mark.parametrize("n_bins", [4, 33])
+def test_dest_histogram_plain_matches_pallas_kernel(n, n_bins):
+    """The sweep of tests/test_kernels.py: the one-vector histogram's plain
+    version and entry point against the Pallas kernel (interpret mode) and
+    the reference's oracle, bit for bit; the -1 sentinel and values past
+    the last bin are counted nowhere."""
+    dest = RNG.randint(-1, n_bins + 2, n).astype(np.int32)
+    ref = np.asarray(j_dest_histogram(jnp.asarray(dest), n_bins=n_bins))
+    np.testing.assert_array_equal(ref, np.asarray(
+        j_hist1d_ref(jnp.asarray(dest), n_bins=n_bins)))
+    got = dest_histogram_ref(torch.as_tensor(dest), n_bins=n_bins)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n_bins,)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        histogram_rows(torch.as_tensor(dest), n_bins=n_bins).numpy(), ref)
+
+
+@pytest.mark.parametrize("case", ["empty", "all_sentinel"])
+def test_dest_histogram_plain_edges(case):
+    """n = 0 gives zeros (held against the oracle: the Pallas kernel's
+    wrapper cannot slice an empty vector); a vector of sentinels and values
+    past the last bin counts nothing (held against both)."""
+    n_bins = 33
+    if case == "empty":
+        dest = np.zeros(0, np.int32)
+    else:
+        dest = RNG.choice([-1, -7, n_bins, n_bins + 5], 1000).astype(np.int32)
+        np.testing.assert_array_equal(
+            np.asarray(j_dest_histogram(jnp.asarray(dest), n_bins=n_bins)),
+            np.zeros(n_bins, np.int32))
+    ref = np.asarray(j_hist1d_ref(jnp.asarray(dest), n_bins=n_bins))
+    np.testing.assert_array_equal(ref, np.zeros(n_bins, np.int32))
+    for fn in (dest_histogram_ref, histogram_rows):
+        got = fn(torch.as_tensor(dest), n_bins=n_bins)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("n,m,w", [(16, 16, 8), (100, 333, 16), (512, 64, 4),
@@ -110,6 +165,16 @@ def test_cuda_wrappers_reject_cpu_tensors():
                     torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         dest_histogram2d(torch.zeros((2, 2), dtype=torch.int32), n_bins=3)
+
+
+def test_dest_histogram_wrapper_rejects_cpu_tensors_and_misuse():
+    """Like ``dest_histogram2d``: CPU tensors, other dtypes and
+    non-contiguous input raise; the entry point rejects other devices."""
+    with pytest.raises(ValueError, match="CUDA"):
+        dest_histogram(torch.zeros(4, dtype=torch.int32), n_bins=3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        histogram_rows(torch.zeros(4, dtype=torch.int32, device="meta"),
+                       n_bins=3)
 
 
 def test_dispatch_rejects_other_devices():
