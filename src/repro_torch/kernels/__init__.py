@@ -18,7 +18,8 @@ Kernels (one subpackage each, mirroring ``repro.kernels``):
 * ``chunk_pack`` — ``pack_chunks``: the send-order row gather;
 * ``fletcher`` — ``fletcher``: per-chunk checksums of a checkpoint leaf;
 * ``flash_attention`` — ``flash_attention``: blocked online-softmax
-  attention over (B, S, H, D) q/k/v.
+  attention over (B, S, H, D) q/k/v in bf16 (wgmma fed by TMA);
+  ``flash_attention_f32``: the same in float32 (SIMT FMAs).
 
 Each subpackage holds ``<name>.py`` (the CUDA wrapper and its launch
 count), ``ops.py`` (dispatch: the kernel for CUDA tensors, the plain
@@ -41,7 +42,7 @@ BUILD = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("dest_histogram2d", "pack_chunks", "fletcher", "route_chunks",
-           "dest_histogram", "flash_attention")
+           "dest_histogram", "flash_attention", "flash_attention_f32")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,27 +1,92 @@
-"""CUDA wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""CUDA wrappers of the flash-attention kernels: ``csrc/flash_attention.cu``
+(bf16, wgmma fed by TMA) and ``csrc/flash_attention_f32.cu`` (float32,
+SIMT).
 
-Replaces ``repro.kernels.flash_attention.flash_attention.
-flash_attention_bhsd``; the source file's header says what bounds it, how
-its tiles are laid out and how it is built.
+Both replace ``repro.kernels.flash_attention.flash_attention.
+flash_attention_bhsd``; ``flash_attention_bhsd`` below picks one by dtype
+(bf16 → ``FLASH_ATTENTION``, float32 → ``FLASH_ATTENTION_F32``), and each
+counts its own launches.  The source files' headers say what bounds each
+kernel, how its tiles are laid out and how it is built.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import CudaKernel
 
-# head dims with an instance, and query rows a block (csrc/flash_attention.cu)
+# head dims with an instance, and query rows a block (both sources)
 HEAD_DIMS = (64, 80, 128, 256)
 BLOCK_Q = 64
+TMA_ALIGN = 16                    # bytes: TMA's base and stride alignment
 
 FLASH_ATTENTION = CudaKernel(
     "flash_attention",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+     ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
+     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int])
+
+FLASH_ATTENTION_F32 = CudaKernel(
+    "flash_attention_f32",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_int])
+     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int])
+
+
+class TmaGeometry(NamedTuple):
+    """How TMA reads one (B, H, S, D) view: a 4-D tensor map in place.
+
+    ``dims`` are (D, S, H, B), innermost first; ``strides`` the byte
+    strides of dims 1..3 (S, H, B); ``box`` the box a load copies, (BW,
+    64, 1, 1); ``swizzle`` its shared-memory swizzle in bytes, which is
+    also a box row's width (BW bf16 columns).
+    """
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+    swizzle: int
+
+
+def tma_geometry(t: torch.Tensor) -> TmaGeometry:
+    """The tensor map of a (B, H, S, D) view for ``csrc/flash_attention.cu``.
+
+    The 128-byte swizzle (boxes of 64 bf16 columns) where D is a multiple
+    of 64, else the 32-byte one (boxes of 16: D = 80).  Raises
+    ``ValueError`` where TMA cannot read the view in place: a head dim
+    that is not contiguous, a base address that is not 16-byte aligned, or
+    a stride (of a dim longer than 1) that is not a multiple of 16 bytes.
+    The dim and stride order follow the view, so a (B, S, H, D) tensor
+    passed as ``x.transpose(1, 2)`` maps to dims (D, S, H, B) with byte
+    strides (H·D, D, S·H·D) × 2.
+    """
+    if t.dim() != 4:
+        raise ValueError(f"expected a (B, H, S, D) view, got {t.dim()} dims")
+    B, H, S, D = t.shape
+    sb, sh, ss, sd = t.stride()
+    es = t.element_size()
+    if sd != 1:
+        raise ValueError("the head dim must be contiguous")
+    base = t.data_ptr() % TMA_ALIGN
+    if base:
+        raise ValueError(f"TMA needs a {TMA_ALIGN}-byte aligned base; this "
+                         f"view starts {base} bytes past one")
+    strides = [ss * es, sh * es, sb * es]
+    stepped = [n > 1 for n in (S, H, B)]
+    for dim, st, step in zip((2, 1, 0), strides, stepped):
+        if step and st % TMA_ALIGN:
+            raise ValueError(f"TMA needs strides that are multiples of "
+                             f"{TMA_ALIGN} bytes; dim {dim} has {st}")
+    # a dim of size 1 is never stepped: give it a stride TMA accepts
+    filler = max([D * es] + [st for st, step in zip(strides, stepped)
+                             if step])
+    swizzle = 128 if D % 64 == 0 else 32
+    return TmaGeometry((D, S, H, B),
+                       tuple(st if step else filler
+                             for st, step in zip(strides, stepped)),
+                       (swizzle // es, BLOCK_Q, 1, 1), swizzle)
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,10 +95,16 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over (B, H, S, D) CUDA views (kernel); float32 or bf16,
     output in q's dtype and q's memory layout.
 
-    The views are read through their strides, so a (B, S, H, D) tensor
-    passed as ``x.transpose(1, 2)`` is not copied; only the head dim must
-    be contiguous.  Raises on CPU tensors, mismatched shapes, devices or
-    dtypes, and head dims the kernel has no instance for.
+    bf16 goes to the Hopper kernel (``FLASH_ATTENTION``), which reads each
+    view in place with TMA: its base must be 16-byte aligned and its
+    strides multiples of 16 bytes (``tma_geometry``).  A contiguous
+    tensor, ``project_qkv``'s outputs and their (B, S, H, D) →
+    (B, H, S, D) transposes all are; a view that is not (a slice one
+    element in, say) raises.  float32 goes to the SIMT kernel
+    (``FLASH_ATTENTION_F32``), which needs only the head dim contiguous.
+    This is a dispatch by dtype: nothing falls back from one kernel to the
+    other.  Raises on CPU tensors, mismatched shapes, devices or dtypes,
+    and head dims the kernels have no instance for.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -59,10 +130,19 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        geo = [tma_geometry(t) for t in (q, k, v)]
+        strides = (ctypes.c_uint64 * 9)(*[s for g in geo for s in g.strides])
+        FLASH_ATTENTION.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            (ctypes.c_uint64 * 4)(*geo[0].dims), strides,
+            (ctypes.c_uint32 * 4)(*geo[0].box), geo[0].swizzle,
+            (ctypes.c_longlong * 3)(*[out.stride(i) for i in (0, 2, 1)]),
+            float(scale), int(bool(causal)))
+        return out
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)])
-    FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), strides, B, H, S, D,
-                           int(q.dtype == torch.bfloat16), float(scale),
-                           int(bool(causal)))
+    FLASH_ATTENTION_F32.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), strides, B, H, S, D,
+                               float(scale), int(bool(causal)))
     return out

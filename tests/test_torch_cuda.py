@@ -24,7 +24,7 @@ from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
                                                   route_chunks_ref)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
-    FLASH_ATTENTION, flash_attention_bhsd)
+    FLASH_ATTENTION, FLASH_ATTENTION_F32, flash_attention_bhsd)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_ref)
 from repro_torch.kernels.fletcher.fletcher import FLETCHER, fletcher_chunks
@@ -185,19 +185,30 @@ def test_cuda_dest_histogram_all_sentinel_counts_nothing(cuda):
     assert not histogram_rows(dest, n_bins=33).any()
 
 
+def _launched():
+    """The flash-attention launch counts, (bf16 kernel, float32 kernel)."""
+    return FLASH_ATTENTION.launches, FLASH_ATTENTION_F32.launches
+
+
+def _one_more(before, dtype):
+    bf16, f32 = before
+    return (bf16 + 1, f32) if dtype == torch.bfloat16 else (bf16, f32 + 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 80, 128, 256])
-@pytest.mark.parametrize("S", [96, 256])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 96, 256, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_matches_plain(cuda, D, S, dtype, causal):
-    """S = 96 leaves a ragged last tile of queries and keys."""
+    """Ragged S (1, 63, 65, 96, 1000) leaves a partial last tile of
+    queries and keys; bf16 runs the Hopper kernel, float32 the SIMT one."""
     q, k, v = (torch.as_tensor(RNG.randn(2, S, 3, D).astype(np.float32),
                                device=cuda).to(dtype) for _ in range(3))
-    before = FLASH_ATTENTION.launches
+    before = _launched()
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert FLASH_ATTENTION.launches == before + 1
+    assert _launched() == _one_more(before, dtype)
     assert got.dtype == dtype and got.is_contiguous()
     want = flash_attention_ref(q, k, v, scale=D ** -0.5, causal=causal)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -205,30 +216,59 @@ def test_cuda_flash_attention_matches_plain(cuda, D, S, dtype, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_attention_gemma_global_shape(cuda, dtype):
+@pytest.mark.parametrize("dtype,D,S", [(torch.float32, 256, 1024),
+                                       (torch.bfloat16, 256, 1024),
+                                       (torch.bfloat16, 256, 1000),
+                                       (torch.bfloat16, 128, 1024),
+                                       (torch.bfloat16, 80, 1024),
+                                       (torch.bfloat16, 64, 1024)])
+def test_cuda_flash_attention_gemma_global_shape(cuda, dtype, D, S):
     """B 4, S 1024, H 4, D 256: gemma3-1b's global layers at the training
-    batch."""
-    q, k, v = (torch.randn((4, 1024, 4, 256), device=cuda).to(dtype)
+    batch; in bf16 also ragged S and the other head dims."""
+    q, k, v = (torch.randn((4, S, 4, D), device=cuda).to(dtype)
                for _ in range(3))
+    before = _launched()
     got = flash_attention(q, k, v, causal=True)
-    want = flash_attention_ref(q, k, v, scale=1 / 16, causal=True)
+    torch.cuda.synchronize()
+    assert _launched() == _one_more(before, dtype)
+    want = flash_attention_ref(q, k, v, scale=D ** -0.5, causal=True)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_reads_any_strides(cuda):
-    """Contiguous (BH, S, D)-style views and a sliced head dim's neighbours:
-    the kernel follows each tensor's own strides."""
-    q, k, v = (torch.randn((2, 3, 130, 64), device=cuda) for _ in range(3))
-    kt = torch.randn((2, 130, 3, 64), device=cuda).transpose(1, 2)
-    got = flash_attention_bhsd(q, kt, v, scale=0.125, causal=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [80, 256])
+def test_cuda_flash_attention_reads_any_strides(cuda, dtype, D):
+    """Contiguous (BH, S, D)-style views, a (B, S, H, D) transpose and a
+    head-dim slice of a wider tensor: the kernel follows each tensor's own
+    strides (in bf16 through TMA tensor maps)."""
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    q = torch.randn((2, 3, 130, D), device=cuda).to(dtype)
+    kt = torch.randn((2, 130, 3, D), device=cuda).to(dtype).transpose(1, 2)
+    vs = torch.randn((2, 3, 130, 2 * D), device=cuda).to(dtype)[..., :D]
+    got = flash_attention_bhsd(q, kt, vs, scale=0.125, causal=True)
     assert got.is_contiguous()
-    want = attention_ref(q.reshape(6, 130, 64), kt.reshape(6, 130, 64),
-                         v.reshape(6, 130, 64), scale=0.125, causal=True)
-    torch.testing.assert_close(got.reshape(6, 130, 64), want, atol=2e-5,
-                               rtol=2e-5)
+    want = attention_ref(q.reshape(6, 130, D), kt.reshape(6, 130, D),
+                         vs.reshape(6, 130, D), scale=0.125, causal=True)
+    torch.testing.assert_close(got.reshape(6, 130, D).float(), want.float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_misaligned_bf16_view_raises(cuda):
+    """A bf16 view one element past a 16-byte boundary cannot be read by
+    TMA: the wrapper raises and launches nothing (no other kernel takes
+    it)."""
+    flat = torch.randn(2 * 96 * 3 * 64 + 1, device=cuda).to(torch.bfloat16)
+    bad = flat[1:].view(2, 96, 3, 64)
+    good = torch.randn((2, 96, 3, 64), device=cuda).to(torch.bfloat16)
+    before = _launched()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(bad, good, good)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(good, good, bad)
+    assert _launched() == before
 
 
 @pytest.mark.cuda

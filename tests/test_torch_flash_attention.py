@@ -23,8 +23,8 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.models.attention import online_softmax_attention
 from repro_torch.configs import all_configs
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention_bhsd
+from repro_torch.kernels.flash_attention.flash_attention import (
+    HEAD_DIMS, flash_attention_bhsd, tma_geometry)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as nnl
 from repro_torch.models.attention import masked_attention, project_qkv
@@ -144,3 +144,98 @@ def test_flash_attention_entry_point_rejects_bad_input():
     m = torch.zeros((1, 64, 2, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(m, m, m)
+
+
+# --- the bf16 kernel's TMA tensor maps, computed on the host --------------
+
+def _tma_box(t: torch.Tensor, geo, coords):
+    """What one TMA load of ``geo``'s box at ``coords`` (innermost first)
+    copies, emulated from the tensor's storage and the geometry alone:
+    elements past a dim's extent read as zero."""
+    es = t.element_size()
+    flat = torch.empty(0, dtype=t.dtype).set_(t.untyped_storage())
+    base = t.storage_offset() * es
+    st = (es,) + tuple(geo.strides)
+    out = torch.zeros(geo.box[1], geo.box[0], dtype=t.dtype)
+    c0, c1, c2, c3 = coords
+    for r in range(geo.box[1]):
+        for c in range(geo.box[0]):
+            idx = (c0 + c, c1 + r, c2, c3)
+            if all(i < n for i, n in zip(idx, geo.dims)):
+                off = base + sum(i * s for i, s in zip(idx, st))
+                assert off % es == 0
+                out[r, c] = flat[off // es]
+    return out
+
+
+def _tile(t, geo, coords):
+    """The same box read through torch indexing of the (B, H, S, D) view."""
+    c0, c1, c2, c3 = coords
+    want = torch.zeros(geo.box[1], geo.box[0], dtype=t.dtype)
+    part = t[c3, c2, c1:c1 + geo.box[1], c0:c0 + geo.box[0]]
+    want[:part.shape[0], :part.shape[1]] = part
+    return want
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 63, 65, 1000])
+def test_tma_geometry_of_transposed_view(D, S):
+    """(B, S, H, D) → (B, H, S, D) views, as ``ops.flash_attention`` passes
+    them: dims (D, S, H, B), byte strides (H·D, D, S·H·D) × 2, boxes of 64
+    rows × 64 columns under the 128-byte swizzle, or × 16 under the 32-byte
+    one at D = 80; and every box the kernel loads reads the view's own
+    elements, zeros past S."""
+    B, H = 2, 3
+    x = torch.as_tensor(RNG.randn(B, S, H, D).astype(np.float32)).to(
+        torch.bfloat16)
+    t = x.transpose(1, 2)
+    geo = tma_geometry(t)
+    swizzle = 128 if D % 64 == 0 else 32
+    assert geo.dims == (D, S, H, B)
+    assert geo.strides == (H * D * 2, D * 2, S * H * D * 2)
+    assert geo.box == (swizzle // 2, 64, 1, 1) and geo.swizzle == swizzle
+    assert all(st % 16 == 0 for st in geo.strides)
+    last_row = (S - 1) // 64 * 64
+    for coords in ((0, 0, 0, 0), (D - geo.box[0], last_row, H - 1, B - 1),
+                   (geo.box[0] * (D // geo.box[0] // 2), last_row, 1, 0)):
+        assert torch.equal(_tma_box(x, geo, coords), _tile(t, geo, coords))
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_tma_geometry_of_contiguous_bhsd_tensor(D):
+    B, H, S = 2, 3, 96
+    t = torch.as_tensor(RNG.randn(B, H, S, D).astype(np.float32)).to(
+        torch.bfloat16)
+    geo = tma_geometry(t)
+    assert geo.dims == (D, S, H, B)
+    assert geo.strides == (D * 2, S * D * 2, H * S * D * 2)
+    coords = (0, 64, 2, 1)
+    assert torch.equal(_tma_box(t, geo, coords), _tile(t, geo, coords))
+
+
+def test_tma_geometry_gives_size_one_dims_a_legal_stride():
+    """A dim of size 1 is never stepped, whatever stride the view reports;
+    the map still gets a multiple of 16 bytes no smaller than a row."""
+    x = torch.zeros((1, 5, 1, 80), dtype=torch.bfloat16)
+    t = x.transpose(1, 2)
+    geo = tma_geometry(t)
+    assert geo.dims == (80, 5, 1, 1)
+    assert geo.strides[0] == 160
+    assert all(st % 16 == 0 and st >= 160 for st in geo.strides)
+
+
+@pytest.mark.parametrize("case", ["base", "stride", "head_dim", "rank"])
+def test_tma_geometry_rejects_views_tma_cannot_read(case):
+    if case == "base":          # one element past a 16-byte boundary
+        t = torch.zeros(2 * 96 * 3 * 64 + 1, dtype=torch.bfloat16)[1:]
+        t, match = t.view(2, 96, 3, 64).transpose(1, 2), "aligned base"
+    elif case == "stride":      # rows of 68 elements: 136-byte strides
+        t = torch.zeros((2, 96, 3, 68), dtype=torch.bfloat16)[..., :64]
+        t, match = t.transpose(1, 2), "multiples of 16"
+    elif case == "head_dim":
+        t = torch.zeros((2, 3, 64, 96), dtype=torch.bfloat16)[..., ::2]
+        match = "contiguous"
+    else:
+        t, match = torch.zeros((6, 64, 64), dtype=torch.bfloat16), "dims"
+    with pytest.raises(ValueError, match=match):
+        tma_geometry(t)
