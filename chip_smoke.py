@@ -5,15 +5,18 @@ plane, then fault-tolerant training of gemma3-1b with Proteus checkpoints.
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which must succeed or the run fails without a result line:
 
-  (a) build the seven hand-written kernels from ``src/repro_torch/csrc``
-      with nvcc for sm_90a, all sources compiled in parallel, and check
-      that the bf16 attention library's SASS holds wgmma (``HGMMA``) and
-      TMA loads (``UTMALDG``);
+  (a) build the seven hand-written kernel libraries from
+      ``src/repro_torch/csrc`` with nvcc for sm_90a, all sources compiled
+      in parallel, and check that the bf16 attention library's SASS holds
+      wgmma (``HGMMA``) and TMA loads (``UTMALDG``), and the float32 one's
+      tensor-core products with a TF32 type (``HMMA ... TF32``);
   (b) each kernel of the data plane and the checkpoint path against its
       plain PyTorch version on the card, bit for bit, at the shapes its
       main path gives it and at sentinel and edge shapes (``fletcher`` up
       to the full embedding leaf, 302 M words in 4608 chunks;
-      ``route_chunks`` in all four modes);
+      ``route_chunks`` in all four modes; ``route_chunks_segmented`` on a
+      whole gemma3-1b save's leaf table, 251 leaves, and on mixed modes,
+      empty leaves and 20000 leaves);
   (b2) the last kernels through their entry points: ``flash_attention``
       on gemma3-1b's global attention (layer 5 of the full-width
       parameters; q/k/v from the port's own projections and RoPE on bf16
@@ -27,13 +30,18 @@ Phases, each of which must succeed or the run fails without a result line:
       manager's routing, 32 nodes), bit for bit; both launch counts
       (zeroed just before) above 0.  Then float32 causal and full at that
       shape through the SIMT kernel (its count zeroed just before, above
-      0 after) within 2e-5, and in bf16 within 2e-2 on every element; the
-      bf16 sweep over D 64/80/128/256 × S
-      1..1024 (ragged included) × causal/full, the JAX sweep's shapes in
-      both dtypes, strided views, a misaligned bf16 view that must raise;
-      the histogram's sweep, sentinels and 20000 bins; kernel, plain,
-      library (SDPA, timed in turns with the kernel, ``bincount``) and
-      bound times;
+      0 after; 3xTF32 on the tensor cores) within 2e-5, and in bf16
+      within 2e-2 on every element; the bf16 sweep over D 64/80/128/256 ×
+      S 1..1024 (ragged included) × causal/full, the float32 sweep over D
+      64/80/128/256 × S 1/63/64/65/1000/1024 × causal/full (2e-5), the JAX
+      sweep's shapes in both dtypes, strided views; a misaligned bf16 view
+      on which the kernel's wrapper must raise with no launch and which
+      the entry point copies (2e-2); head dims 16/32/96/192 padded to an
+      instance, in both dtypes, with the reference's keywords; float16
+      through the float32 kernel (2e-3); the histogram's sweep, sentinels
+      and 20000 bins; kernel, plain, library (SDPA, timed in turns with
+      the kernel, ``bincount``) and bound times (float32: 3xTF32 at the
+      TF32 peak, and the float32 SIMT peak beside it);
   (c) the deployment, through ``BBClient``: 32 burst-buffer nodes, 1 MiB
       chunks, the heterogeneous policy (``/bb/ckpt`` HYBRID, ``/bb/shared``
       DIST_HASH, default CENTRAL_META), 256 chunk slots and 1024 metadata
@@ -56,12 +64,14 @@ Phases, each of which must succeed or the run fails without a result line:
       with a straggler redo, a corrupted checkpoint rejected by the card's
       checksum with a fallback, and a crash restored from a checkpoint
       verified on the card; the FailureLog and final step must equal what
-      the JAX loop gives under the same plan (pinned below), and both
-      checkpoint kernels' launch counts (zeroed just before) above 0;
+      the JAX loop gives under the same plan (pinned below), both
+      checkpoint kernels' launch counts (zeroed just before) above 0, and
+      the routing's exactly one a save and one a restore;
   (g) checkpoint and step times: a save (blocking part and async part) and
       a restore of the full final state (12 GB), checked bit for bit; the
-      kernels' times per save against their bounds; the train step's time,
-      tokens/s and a profile of one step.
+      kernels' times per save against their bounds, and the routing's host
+      time per save; the train step's time, tokens/s and a profile of one
+      step.
 
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -93,6 +103,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 SIMPLE_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 495e12
 
 DEVICE = "cuda"
 N_NODES, CAP, MCAP, Q = 32, 256, 1024, 8
@@ -125,7 +136,7 @@ TRAIN_EXPECTED = {
 # compute in float32 and differ in summation order, 2e-2 where both round
 # a float32 result once to bf16
 GLOBAL_LAYER = 5
-ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 TIE_GAP = 10.0                 # scaled-score lead of a decided softmax row
 
 # SHA-256 digests pinned by the JAX package's tests (tests/test_policy.py,
@@ -164,6 +175,16 @@ def check(cond, msg: str) -> None:
 # ---------------------------------------------------------------------------
 # (a) build
 # ---------------------------------------------------------------------------
+def sass_count(kernels, name: str, op: str, also: str = "") -> int:
+    """Lines of one library's SASS (``cuobjdump -sass``) holding ``op``
+    (and ``also``, where given)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(kernels.library_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    return sum(op in line and also in line for line in sass.stdout.splitlines())
+
+
 def phase_build(kernels) -> None:
     t0 = time.perf_counter()
     reports = kernels.build(kernels.KERNELS)
@@ -177,15 +198,15 @@ def phase_build(kernels) -> None:
                 log(f"[build]   {line.strip()[:140]}")
     log(f"[build] {len(kernels.KERNELS)} kernels in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, in parallel)")
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(kernels.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300)
-    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
-    counts = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    counts = {op: sass_count(kernels, "flash_attention", op)
+              for op in ("HGMMA", "UTMALDG")}
     log(f"[build] flash_attention SASS: {counts}")
     for op, n in counts.items():
         check(n > 0, f"flash_attention's SASS holds no {op}")
+    tf32 = sass_count(kernels, "flash_attention_f32", "HMMA", "TF32")
+    log(f"[build] flash_attention_f32 SASS: {tf32} HMMA lines with a TF32 "
+        f"type (3xTF32 on the tensor cores)")
+    check(tf32 > 0, "flash_attention_f32's SASS holds no TF32 HMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -329,12 +350,16 @@ def phase_checkpoint_kernels_vs_plain(seed: int) -> dict:
     """``fletcher`` and ``route_chunks`` against their plain versions, bit
     for bit, at the checkpoint path's shapes and at edge shapes."""
     from repro_torch.checkpoint.manager import CHUNK_WORDS
+    from repro_torch.core.layouts import str_hash
     from repro_torch.kernels.chunk_router.chunk_router import route_chunks
-    from repro_torch.kernels.chunk_router.ref import route_chunks_ref
+    from repro_torch.kernels.chunk_router.ops import leaf_table, route_leaves
+    from repro_torch.kernels.chunk_router.ref import (
+        route_chunks_ref, route_chunks_segmented_ref)
     from repro_torch.kernels.fletcher.fletcher import fletcher_chunks
     from repro_torch.kernels.fletcher.ops import as_words
     from repro_torch.kernels.fletcher.ref import fletcher_chunks_ref
-    err = {"fletcher": 0.0, "route_chunks": 0.0}
+    err = {"fletcher": 0.0, "route_chunks": 0.0,
+           "route_chunks_segmented": 0.0}
     rng = np.random.RandomState(seed)
     dev = torch.device(DEVICE)
 
@@ -382,6 +407,35 @@ def phase_checkpoint_kernels_vs_plain(seed: int) -> dict:
                       f"route_chunks mode {mode} n {n} nodes {nodes} differs")
     log(f"[kernels] route_chunks modes 1-4 x n 1/1000/45770 x nodes 32/64: "
         f"equal (max_abs_err {err['route_chunks']})")
+
+    # the segmented form: a whole save's leaf table (gemma3-1b's 251 leaves
+    # under the deployment policy), then mixed modes, empty leaves and
+    # 20000 leaves (offsets past 48 KB of shared memory)
+    paths, n_chunks = save_leaves(TRAIN_STEPS)
+    policy = deployment_policy()
+    cases = [("main path (one save)",
+              leaf_table([str_hash(p) for p in paths],
+                         [int(policy.mode_for_path(p)) for p in paths],
+                         n_chunks), N_NODES)]
+    for n_leaves, nodes in ((7, 64), (251, 7), (20000, 32), (3, 20000)):
+        nc = rng.randint(0, 4609 if n_leaves < 1000 else 4, n_leaves)
+        nc[0] = max(nc[0], 1)
+        cases.append((f"edge {n_leaves} leaves", leaf_table(
+            rng.randint(0, 2 ** 31 - 1, n_leaves),
+            rng.randint(1, 5, n_leaves), nc), nodes))
+    for label, (table, offsets), nodes in cases:
+        got = route_leaves(table, int(offsets[-1]), n_nodes=nodes,
+                           device=dev)
+        torch.cuda.synchronize()
+        want = route_chunks_segmented_ref(torch.as_tensor(table, device=dev),
+                                          int(offsets[-1]), n_nodes=nodes)
+        e = max_abs_err(got, want)
+        err["route_chunks_segmented"] = max(err["route_chunks_segmented"], e)
+        check(torch.equal(got, want), f"route_chunks_segmented {label} "
+                                      f"differs")
+        log(f"[kernels] route_chunks_segmented {label}: {len(table)} "
+            f"leaves, {int(offsets[-1])} chunks, {nodes} nodes: equal "
+            f"(max_abs_err {e})")
     return err
 
 
@@ -414,33 +468,41 @@ def global_layer_qkv(cfg, params: dict, seed: int):
     return project_qkv(layer["attn"], h, pos, cfg)
 
 
-def save_destinations(cfg) -> torch.Tensor:
-    """The destinations ``route_chunks`` gives every chunk of one gemma3-1b
-    save under the deployment policy, leaf after leaf, concatenated: the
-    checkpoint manager's own routing over the train state's leaves (shapes
-    only: the state is made of meta tensors)."""
-    from repro_torch.checkpoint.manager import (CHUNK_WORDS,
-                                                CheckpointManager,
-                                                flatten_state)
+def save_leaves(step: int):
+    """The leaf paths and chunk counts of one gemma3-1b save under the
+    deployment policy (the checkpoint manager's own paths; shapes only:
+    the state is made of meta tensors)."""
+    from repro_torch.checkpoint.manager import CHUNK_WORDS, flatten_state
+    from repro_torch.configs import all_configs
     from repro_torch.kernels.fletcher.ops import as_words
     from repro_torch.kernels.fletcher.ref import n_chunks_of
     from repro_torch.models.param import map_tree, torch_dtype
     from repro_torch.models.registry import build_model
     from repro_torch.train.optimizer import AdamW
+    cfg = all_configs()[TRAIN_ARCH]
     params = map_tree(lambda p: torch.empty(p.shape, device="meta",
                                             dtype=torch_dtype(
                                                 p.dtype or cfg.param_dtype)),
                       build_model(cfg).describe())
     state = (params, AdamW().init(params),
              torch.zeros(2, dtype=torch.int32, device="meta"))
+    leaves = flatten_state(state)
+    return ([f"/bb/ckpt/{step}/{key}" for key, _ in leaves],
+            [n_chunks_of(as_words(t).numel(), CHUNK_WORDS) for _, t in leaves])
+
+
+def save_destinations() -> torch.Tensor:
+    """The destinations of every chunk of one gemma3-1b save under the
+    deployment policy, leaf after leaf: the checkpoint manager's own
+    routing (one launch)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
     with tempfile.TemporaryDirectory() as d:
         mgr = CheckpointManager(d, deployment_policy(), async_save=False)
-        dests = []
-        for key, t in flatten_state(state):
-            nc = n_chunks_of(as_words(t).numel(), CHUNK_WORDS)
-            cids = torch.arange(nc, dtype=torch.int32, device=DEVICE)
-            dests.append(mgr._route(f"{mgr.scope}/{TRAIN_STEPS}/{key}", cids))
-    return torch.cat(dests)
+        paths, n_chunks = save_leaves(TRAIN_STEPS)
+        check(all(p.startswith(mgr.scope + "/") for p in paths),
+              f"checkpoint scope {mgr.scope} is not /bb/ckpt")
+        dest, _ = mgr.route(paths, n_chunks, DEVICE)
+    return dest
 
 
 def decided_rows(q: torch.Tensor, k: torch.Tensor,
@@ -510,7 +572,7 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
     q, k, v = global_layer_qkv(cfg, params, seed)
     del params
     torch.cuda.empty_cache()
-    dest = save_destinations(cfg)
+    dest = save_destinations()
     B, S, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     s00 = (q[0, :, 0].float() @ k[0, :, 0].float().T) * scale
@@ -643,6 +705,23 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
     log(f"[last] flash_attention bf16 sweep D 64/80/128/256 x S "
         f"1/63/64/65/96/128/256/512/1000/1024 x causal/full: {n_sweep} "
         f"cases within {ATTN_TOL[torch.bfloat16]}")
+    # the float32 kernel (3xTF32 on the tensor cores) over the same head
+    # dims, unit-normal q/k/v
+    worst, n_sweep = 0.0, 0
+    for d in (64, 80, 128, 256):
+        for s_len in (1, 63, 64, 65, 1000, 1024):
+            for causal in (True, False):
+                x = [rand((2, s_len, 3, d), torch.float32) for _ in range(3)]
+                worst = max(worst, close(
+                    f"float32 {(2, s_len, 3, d)} causal={causal}",
+                    flash_attention(*x, causal=causal),
+                    flash_attention_ref(*x, scale=d ** -0.5, causal=causal),
+                    ATTN_TOL[torch.float32], quiet=True))
+                n_sweep += 1
+    err[f32_counter.name] = max(err[f32_counter.name], worst)
+    log(f"[last] flash_attention float32 sweep D 64/80/128/256 x S "
+        f"1/63/64/65/1000/1024 x causal/full: {n_sweep} cases within "
+        f"{ATTN_TOL[torch.float32]} (max_abs_err {worst})")
     shapes = ((2, 128, 2, 64), (1, 256, 4, 64), (2, 96, 3, 80),
               (1, 512, 1, 128), (2, 96, 2, 256), (1, 1000, 2, 256),
               (2, 1, 2, 256), (2, 63, 2, 80), (1, 65, 2, 256),
@@ -681,14 +760,49 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
         2, 96, 3, 64)
     before = counters[0].launches
     try:
-        flash_attention(bad, bad, bad, causal=True)
+        flash_attention_bhsd(bad.transpose(1, 2), bad.transpose(1, 2),
+                             bad.transpose(1, 2), scale=0.125)
         raised = False
     except ValueError:
         raised = True
     check(raised and counters[0].launches == before,
-          "a bf16 view one element off alignment did not raise")
+          "a bf16 view one element off alignment did not raise in the "
+          "kernel's wrapper")
+    got = flash_attention(bad, bad, bad, causal=True)
+    check(counters[0].launches == before + 1,
+          "the entry point did not launch the bf16 kernel on a copy")
+    close("bf16 view one element off 16-byte alignment, entry point",
+          got, flash_attention_ref(bad, bad, bad, scale=0.125, causal=True),
+          ATTN_TOL[torch.bfloat16])
     log("[last] flash_attention bf16 view one element off 16-byte "
-        "alignment: raised, no launch")
+        "alignment: the wrapper raised with no launch; the entry point "
+        "copied it and launched once")
+
+    # what the entry point takes beyond the kernels' instances: head dims
+    # padded to the next one, float16 through the float32 kernel, the
+    # reference's keywords
+    for d in (16, 32, 96, 192):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [rand((2, 130, 3, d), dtype) for _ in range(3)]
+            close(f"padded head dim {d} {dtype}",
+                  flash_attention(*x, causal=True, block_q=512, block_k=512,
+                                  interpret=False),
+                  flash_attention_ref(*x, scale=d ** -0.5, causal=True),
+                  ATTN_TOL[dtype], quiet=True)
+    log("[last] flash_attention head dims 16/32/96/192 (padded to 64/64/"
+        "128/256) x f32/bf16, keywords block_q/block_k/interpret: within "
+        "tolerance")
+    before = f32_counter.launches
+    for d in (64, 96):
+        x = [rand((2, 200, 3, d), torch.float16) for _ in range(3)]
+        got = flash_attention(*x, causal=True)
+        check(got.dtype == torch.float16, "float16 in, not float16 out")
+        close(f"float16 D={d} (the float32 kernel, rounded once)", got,
+              flash_attention_ref(*(a.float() for a in x), scale=d ** -0.5,
+                                  causal=True).half(),
+              ATTN_TOL[torch.float16])
+    check(f32_counter.launches == before + 2,
+          "float16 did not run the float32 kernel")
 
     def hist_case(label, d, n_bins):
         got = histogram_rows(d, n_bins=n_bins)
@@ -747,20 +861,35 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
         f"{cuda_ms(lambda: flash_attention(q, k, v, causal=True), 100):.4f}"
         f" ms a call (host launch rate)")
     times["flash_attention"] = times.pop("flash_attention causal")
+    # float32: the kernel runs three TF32 tensor-core products for each
+    # product of the work, so its bound is 3x the work at the TF32 peak;
+    # the float32 SIMT peak's bound is printed beside it
     f32t = [a.transpose(1, 2) for a in f32]
-    t32, t32l, _, _ = turns(
-        lambda: flash_attention(*f32, causal=True),
-        lambda: F.scaled_dot_product_attention(*f32t, is_causal=True), 20)
-    t32p = cuda_ms(lambda: flash_attention_ref(*f32, scale=scale,
-                                               causal=True), 5)
-    t32f = device_ms(lambda: flash_attention(*f32, causal=False), 20)
-    b32, by32 = bound_ms(4 * f32[0].numel() * 4,
-                         attention_flops(B, S, H, D, True))
-    times[f32_counter.name] = dict(
-        ms=t32, plain_ms=t32p, library_ms=t32l, bound_ms=b32, bound_by=by32,
-        shape=f"{(B, S, H, D)} float32 causal, device time, bound at the "
-              f"float32 SIMT peak; library: scaled_dot_product_attention; "
-              f"full (no mask) {t32f:.4f} ms")
+    for causal in (True, False):
+        mode = "causal" if causal else "full"
+        t32, t32l, ks, ls = turns(
+            lambda: flash_attention(*f32, causal=causal),
+            lambda: F.scaled_dot_product_attention(*f32t, is_causal=causal),
+            20)
+        t32p = cuda_ms(lambda: flash_attention_ref(*f32, scale=scale,
+                                                   causal=causal), 5)
+        flops = attention_flops(B, S, H, D, causal)
+        b32, by32 = bound_ms(4 * f32[0].numel() * 4, 3 * flops,
+                             TF32_TENSOR_OPS_PER_S)
+        simt, _ = bound_ms(4 * f32[0].numel() * 4, flops)
+        log(f"[time] flash_attention float32 {mode} {(B, S, H, D)}, device "
+            f"time in turns: kernel {ks[0]:.5f}, SDPA {ls[0]:.5f}, kernel "
+            f"{ks[1]:.5f}, SDPA {ls[1]:.5f} ms; bound {b32:.5f} ms (3xTF32 "
+            f"at the TF32 peak, {by32}), {b32 / t32:.3f} of it; float32 "
+            f"SIMT bound {simt:.5f} ms")
+        times[f"{f32_counter.name} {mode}"] = dict(
+            ms=t32, plain_ms=t32p, library_ms=t32l, bound_ms=b32,
+            bound_by=by32, simt_bound_ms=simt,
+            shape=f"{(B, S, H, D)} float32 {mode}, device time, bound: "
+                  f"3xTF32 at the TF32 tensor-core peak (float32 SIMT "
+                  f"peak: {simt:.4f} ms); library: "
+                  f"scaled_dot_product_attention")
+    times[f32_counter.name] = times.pop(f"{f32_counter.name} causal")
     del f32, f32t
 
     nb = N_NODES
@@ -778,7 +907,7 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
         shape=f"{dest.numel()} save destinations -> {nb} bins, device time; "
               f"library: bincount on this sentinel-free input")
     for name in ("flash_attention", "flash_attention full", f32_counter.name,
-                 "dest_histogram"):
+                 f"{f32_counter.name} full", "dest_histogram"):
         r = times[name]
         log(f"[time] {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms, "
@@ -1123,7 +1252,11 @@ def mem_available_gib() -> float:
     return float("nan")
 
 
-def phase_train(seed: int, counters) -> dict:
+def phase_train(seed: int, counters, route_counter) -> dict:
+    """``counters``: the checkpoint kernels' launch counts; each must be
+    above 0 after the run, and ``route_counter`` (the segmented routing)
+    must read one launch per save and one per restore."""
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import all_configs
     from repro_torch.models.registry import build_model
     from repro_torch.train.failure import FailurePlan
@@ -1140,17 +1273,41 @@ def phase_train(seed: int, counters) -> dict:
         f"the store keeps every save (12.0 GB each)")
     loop_cfg = LoopConfig(steps=TRAIN_STEPS, ckpt_every=CKPT_EVERY,
                           layout_policy=deployment_policy())
+    # count the manager's saves and restores (restores that fail their
+    # checksum included) by wrapping its two methods for this run
+    calls = {"save": 0, "restore": 0}
+    real = {name: getattr(CheckpointManager, name) for name in calls}
+
+    def counted(name):
+        def method(self, *args, **kw):
+            calls[name] += 1
+            return real[name](self, *args, **kw)
+        return method
+
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    res = run_training(model, cfg, TRAIN_BATCH, TRAIN_SEQ, loop_cfg,
-                       failure_plan=FailurePlan(dict(TRAIN_PLAN)), seed=seed)
+    try:
+        for name in calls:
+            setattr(CheckpointManager, name, counted(name))
+        res = run_training(model, cfg, TRAIN_BATCH, TRAIN_SEQ, loop_cfg,
+                           failure_plan=FailurePlan(dict(TRAIN_PLAN)),
+                           seed=seed)
+    finally:
+        for name in calls:
+            setattr(CheckpointManager, name, real[name])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.name: c.launches for c in counters}
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the training path")
+    check(launches[route_counter.name] == calls["save"] + calls["restore"],
+          f"{route_counter.name}: {launches[route_counter.name]} launches "
+          f"for {calls['save']} saves and {calls['restore']} restores")
+    log(f"[train] {calls['save']} saves and {calls['restore']} restores "
+        f"(one failing its checksum), {launches[route_counter.name]} "
+        f"routing launches: one a save and one a restore")
     got = dataclasses.asdict(res.failure_log)
     log(f"[train] FailureLog {got}, final step {res.final_step}, "
         f"{len(res.losses)} steps kept, in {wall:.2f} s")
@@ -1178,8 +1335,11 @@ def phase_checkpoint_times(train: dict) -> dict:
                                                 CheckpointManager,
                                                 flatten_state)
     from repro_torch.core.layouts import str_hash
-    from repro_torch.kernels.chunk_router.chunk_router import route_chunks
-    from repro_torch.kernels.chunk_router.ref import route_chunks_ref
+    from repro_torch.kernels.chunk_router.chunk_router import \
+        route_chunks_segmented
+    from repro_torch.kernels.chunk_router.ops import leaf_table
+    from repro_torch.kernels.chunk_router.ref import \
+        route_chunks_segmented_ref
     from repro_torch.kernels.fletcher.fletcher import fletcher_chunks
     from repro_torch.kernels.fletcher.ops import as_words
     from repro_torch.kernels.fletcher.ref import (fletcher_chunks_ref,
@@ -1248,38 +1408,39 @@ def phase_checkpoint_times(train: dict) -> dict:
     del words, emb
     torch.cuda.empty_cache()
 
-    # route_chunks: launch-bound; device time at the largest leaf, and the
-    # wrapper's host time per leaf over one save's leaves
+    # routing: one route_chunks_segmented launch over a whole save's leaf
+    # table; device time of the launch, and the manager's host time per
+    # save (leaf table, one copy to the card, the launch, the copy back)
     nodes = policy.n_nodes
-    cid = torch.arange(nc, dtype=torch.int32, device=DEVICE)
-    ph = torch.full_like(cid, str_hash(f"/bb/ckpt/{TRAIN_STEPS}/emb"))
-    cl = cid % nodes
-    t_k = device_ms(lambda: route_chunks(ph, cid, cl, mode=4,
-                                         n_nodes=nodes), 50)
-    t_p = device_ms(lambda: route_chunks_ref(ph, cid, cl, mode=4,
-                                             n_nodes=nodes), 50)
-    b, by = bound_ms(nc * 16 + nodes * 4, nc * 10)
-    leaf_ids = [torch.arange(n_chunks_of(as_words(t).numel(), CHUNK_WORDS),
-                             dtype=torch.int32, device=DEVICE)
-                for _, t in leaves]
-
-    def route_all():
-        for c in leaf_ids:
-            route_chunks(torch.full_like(c, 12345), c, c % nodes, mode=4,
-                         n_nodes=nodes)
-    per_leaf_us = host_ms(route_all, 3) * 1e3 / len(leaf_ids)
-    out["route_chunks"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
-                               bound_ms=b, bound_by=by,
-                               per_leaf_us=per_leaf_us,
-                               shape=f"{nc} descriptors (embedding leaf), "
-                                     f"{nodes} nodes, HYBRID")
-    for name in ("fletcher", "route_chunks"):
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, policy, async_save=False)
+        paths = [f"{mgr.scope}/{TRAIN_STEPS}/{key}" for key, _ in leaves]
+        counts = [n_chunks_of(as_words(t).numel(), CHUNK_WORDS)
+                  for _, t in leaves]
+        route_host = host_ms(
+            lambda: mgr.route(paths, counts, DEVICE)[0].cpu(), 5)
+    table, offsets = leaf_table([str_hash(p) for p in paths],
+                                [int(policy.mode_for_path(p)) for p in paths],
+                                counts)
+    lt = torch.as_tensor(table, device=DEVICE)
+    n = int(offsets[-1])
+    t_k = device_ms(lambda: route_chunks_segmented(lt, n, n_nodes=nodes), 50)
+    t_p = device_ms(lambda: route_chunks_segmented_ref(lt, n, n_nodes=nodes),
+                    50)
+    # a binary search over the leaves and the hash, ~16 integer ops a chunk
+    b, by = bound_ms(lt.numel() * 4 + n * 4, n * 16)
+    out["route_chunks_segmented"] = dict(
+        ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b, bound_by=by,
+        host_ms_per_save=route_host,
+        shape=f"one save: {len(table)} leaves, {n} chunks, {nodes} nodes")
+    for name in ("fletcher", "route_chunks_segmented"):
         r = out[name]
         log(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
-    log(f"[time] route_chunks per leaf through the wrapper (host clock, "
-        f"{len(leaf_ids)} leaves of one save): {per_leaf_us:.1f} us")
+    log(f"[time] routing per save through the manager (host clock, best of "
+        f"5, {len(table)} leaves in one launch): {route_host:.3f} ms; the "
+        f"save blocks the loop for {t_block * 1e3:.1f} ms")
     return out
 
 
@@ -1322,12 +1483,12 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS
     from repro_torch.kernels.chunk_router.chunk_router import (
-        DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS)
+        DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS_SEGMENTED)
     from repro_torch.kernels.fletcher.fletcher import FLETCHER
     from repro_torch.kernels.flash_attention.flash_attention import (
         FLASH_ATTENTION, FLASH_ATTENTION_F32)
     counters = (DEST_HISTOGRAM2D, PACK_CHUNKS)
-    ckpt_counters = (FLETCHER, ROUTE_CHUNKS)
+    ckpt_counters = (FLETCHER, ROUTE_CHUNKS_SEGMENTED)
     last_counters = (FLASH_ATTENTION, DEST_HISTOGRAM)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1354,7 +1515,8 @@ def main() -> int:
         del deploy
         torch.cuda.empty_cache()
         phase = "train"
-        train = phase_train(args.seed, ckpt_counters)
+        train = phase_train(args.seed, ckpt_counters,
+                            ROUTE_CHUNKS_SEGMENTED)
         launches.update(train["launches"])
         phase = "checkpoint times"
         times.update(phase_checkpoint_times(train))
@@ -1377,7 +1539,7 @@ def main() -> int:
              "src/repro/kernels/chunk_pack/chunk_pack.py:42"),
             (FLETCHER, "src/repro_torch/csrc/fletcher.cu",
              "src/repro/kernels/fletcher/fletcher.py:39"),
-            (ROUTE_CHUNKS, "src/repro_torch/csrc/route_chunks.cu",
+            (ROUTE_CHUNKS_SEGMENTED, "src/repro_torch/csrc/route_chunks.cu",
              "src/repro/kernels/chunk_router/chunk_router.py:68"),
             (DEST_HISTOGRAM, "src/repro_torch/csrc/dest_histogram.cu",
              "src/repro/kernels/chunk_router/chunk_router.py:107"),

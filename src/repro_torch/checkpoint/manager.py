@@ -9,10 +9,11 @@ here stores the same chunks at the same nodes with the same manifest as the
 JAX manager given the same leaves.
 
 What moves to the card: on save, each leaf's chunks are checksummed by one
-``fletcher`` launch and routed by one ``route_chunks`` launch before the
-device-to-host copy; on restore, a leaf's chunks are routed by one
-``route_chunks`` launch, go to the card in one copy, are checked there by
-one ``fletcher`` launch, and that tensor becomes the restored leaf.  For a
+``fletcher`` launch, and the chunks of all leaves are routed by one
+``route_chunks_segmented`` launch, before the device-to-host copy; on
+restore, the chunks of all leaves are routed by one launch, then each
+leaf's chunks go to the card in one copy, are checked there by one
+``fletcher`` launch, and that tensor becomes the restored leaf.  For a
 state on the CPU the same calls run the kernels' plain versions.
 
 A state is a nested structure of tensors — dicts, tuples and NamedTuples,
@@ -38,9 +39,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.layouts import str_hash
 from repro_torch.core.policy import as_policy
-from repro_torch.kernels.chunk_router.ops import route_chunks
+from repro_torch.kernels.chunk_router.ops import leaf_table, route_leaves
 from repro_torch.kernels.fletcher.ops import as_words, chunk_checksums
-from repro_torch.kernels.fletcher.ref import n_chunks_of
 
 CHUNK_WORDS = 1 << 16     # 256 KiB chunks
 CKPT_SCOPE = "ckpt"       # scope prefix of all checkpoint paths
@@ -125,8 +125,8 @@ class CheckpointMeta:
 class BurstBufferStore:
     """In-memory BB-backed object store: one dict per node (the node-local
     tier), chunks keyed by ``(str_hash(path), chunk_id)``.  The manager
-    routes a leaf's chunks in one batch (``route_chunks``) and passes each
-    chunk's node in."""
+    routes every chunk of a checkpoint in one batch (``route_leaves``) and
+    passes each chunk's node in."""
 
     def __init__(self, policy):
         self.policy = as_policy(policy)
@@ -202,14 +202,18 @@ class CheckpointManager:
         self.store.policy = self.layout
 
     # ---- routing ----------------------------------------------------------
-    def _route(self, path: str, chunk_ids: torch.Tensor) -> torch.Tensor:
-        """Destinations of one leaf's chunks: one ``route_chunks`` call."""
-        n = self.layout.n_nodes
-        ph = torch.full_like(chunk_ids, str_hash(path))
-        dest, _ = route_chunks(ph, chunk_ids, chunk_ids % n,
-                               mode=int(self.layout.mode_for_path(path)),
-                               n_nodes=n)
-        return dest
+    def route(self, paths: List[str], n_chunks: List[int],
+              device) -> Tuple[torch.Tensor, np.ndarray]:
+        """Destinations of chunks 0..n_chunks[i]-1 of each leaf path, leaf
+        after leaf, on ``device`` (one leaf table copied there, one
+        ``route_leaves`` launch, no wait), and the len(paths) + 1 offsets
+        that cut them into leaves."""
+        table, offsets = leaf_table(
+            [str_hash(p) for p in paths],
+            [int(self.layout.mode_for_path(p)) for p in paths], n_chunks)
+        return route_leaves(table, int(offsets[-1]),
+                            n_nodes=self.layout.n_nodes,
+                            device=device), offsets
 
     # ---- save -------------------------------------------------------------
     def save(self, step: int, state) -> None:
@@ -231,24 +235,26 @@ class CheckpointManager:
         for key, t in flatten_state(state):
             t = t.detach()
             words = as_words(t)
-            nc = n_chunks_of(words.numel(), CHUNK_WORDS)
-            cids = torch.arange(nc, dtype=torch.int32, device=words.device)
             device_side.append((key, t, words,
-                                chunk_checksums(words, CHUNK_WORDS),
-                                self._route(f"{self.scope}/{step}/{key}",
-                                            cids)))
+                                chunk_checksums(words, CHUNK_WORDS)))
+        dest, offsets = self.route(
+            [f"{self.scope}/{step}/{key}" for key, _, _, _ in device_side],
+            [len(cs) for _, _, _, cs in device_side],
+            device_side[0][2].device if device_side else "cpu")
         # a copy even for a state on the CPU: the caller may change its
         # tensors while the save thread still reads the words
         hosts = []
-        for _, _, words, _, _ in device_side:
+        for _, _, words, _ in device_side:
             host = _host_buffer(words.numel(), words.is_cuda)
             hosts.append(host.copy_(words, non_blocking=True))
-        if any(words.is_cuda for _, _, words, _, _ in device_side):
+        if any(words.is_cuda for _, _, words, _ in device_side):
             torch.cuda.current_stream().synchronize()
+        dests = np.split(dest.cpu().numpy(), offsets[1:-1])
         return [_StagedLeaf(key, list(t.shape), DTYPE_NAMES[t.dtype],
                             t.numel() * t.element_size(), host.numpy(),
-                            cs.cpu().numpy(), dest.cpu().numpy())
-                for (key, t, _, cs, dest), host in zip(device_side, hosts)]
+                            cs.cpu().numpy(), dest)
+                for (key, t, _, cs), host, dest in zip(device_side, hosts,
+                                                       dests)]
 
     def wait(self) -> None:
         """Join the in-flight save; re-raise its error, if it failed."""
@@ -306,19 +312,26 @@ class CheckpointManager:
         by_key: Dict[str, List[dict]] = {}
         for ch in meta.chunks:
             by_key.setdefault(ch["key"], []).append(ch)
+        keys = [key for key, _ in flatten_state(like_state)]
+        chunks = {key: sorted(by_key[key], key=lambda c: c["chunk_id"])
+                  for key in keys}
+        paths = [f"{self.scope}/{step}/{key}" for key in keys]
+        # a leaf's chunk ids are 0..n-1 unless the manifest lost some: then
+        # the ids up to its last one are routed
+        dest, offsets = self.route(
+            paths, [max((c["chunk_id"] for c in chunks[key]), default=-1) + 1
+                    for key in keys], self.device)
+        dests = np.split(dest.cpu().numpy(), offsets[1:-1])
         leaves = {}
-        for key, _ in flatten_state(like_state):
-            chunks = sorted(by_key[key], key=lambda c: c["chunk_id"])
+        for key, path, dest in zip(keys, paths, dests):
             leaves[key] = self._restore_leaf(
-                f"{self.scope}/{step}/{key}", key, meta.leaves[key], chunks,
-                verify)
+                path, key, meta.leaves[key], chunks[key],
+                dest[[c["chunk_id"] for c in chunks[key]]], verify)
         return unflatten_like(like_state, leaves), meta.step
 
     def _restore_leaf(self, path: str, key: str, info: dict,
-                      chunks: List[dict], verify: bool) -> torch.Tensor:
-        cids = torch.tensor([c["chunk_id"] for c in chunks],
-                            dtype=torch.int32, device=self.device)
-        dest = self._route(path, cids).cpu().numpy()
+                      chunks: List[dict], dest: np.ndarray,
+                      verify: bool) -> torch.Tensor:
         raws: List[bytes] = []
         for ch, d in zip(chunks, dest):
             raw = self.store.get(int(d), path, ch["chunk_id"])

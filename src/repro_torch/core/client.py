@@ -92,7 +92,9 @@ class BBClient:
             card is present — pass ``"cpu"`` for the plain path).
           cap/words/mcap: per-node data slots, chunk width (int32 words)
             and metadata slots of a fresh ``BBState``.
-          state: adopt an existing ``BBState`` (on ``device``).
+          state: start from an existing ``BBState`` (on ``device``): its
+            tables are cloned, so ``state`` stays as it was, unless
+            ``donate``.
           exchange: ``"auto"``, ``"dense"`` or ``"compacted"``.
           budget/meta_budget: explicit uniform per-destination slot counts
             of the compacted data/metadata exchange (no ragged sizing for
@@ -105,8 +107,10 @@ class BBClient:
           two_phase: run hybrid reads as metadata probe → measured data
             round (with ``ragged``).
           pipeline: fuse a lossless write's data and metadata rounds.
-          donate: accepted for interface parity with the JAX client and
-            ignored: the port always updates the tables in place.
+          donate: adopt ``state``'s tables themselves instead of cloning
+            them.  The client then updates them in place (as it updates
+            its own tables on every call), so the caller gives ``state``
+            up, as a JAX caller gives up a donated state.
         """
         self.policy = as_policy(policy)
         self.n_nodes = self.policy.n_nodes
@@ -124,9 +128,13 @@ class BBClient:
         if state is not None and state.data.device != self.device:
             raise ValueError(f"state lives on {state.data.device}, client "
                              f"on {self.device}")
-        self.state = (state if state is not None else
-                      bb.init_state(self.n_nodes, cap, words, mcap,
-                                    device=self.device))
+        if state is None:
+            state = bb.init_state(self.n_nodes, cap, words, mcap,
+                                  device=self.device)
+        elif not donate:
+            state = bb.BBState(*(getattr(state, f.name).clone()
+                                 for f in dataclasses.fields(bb.BBState)))
+        self.state = state
         self._path_codes = functools.lru_cache(maxsize=1 << 16)(
             self._path_codes_uncached)
         self._pick_cache: Dict[int, str] = {}

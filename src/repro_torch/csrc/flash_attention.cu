@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention/flash_attention.py
 // flash_attention_bhsd (body _flash_kernel) for bf16 inputs; float32 inputs
-// go to the SIMT kernel in flash_attention_f32.cu.  For each (b, h) and
+// go to the 3xTF32 kernel in flash_attention_f32.cu.  For each (b, h) and
 // query row i < S:
 //
 //     valid(i, j) = j < S and (not causal or j <= i)

@@ -14,12 +14,15 @@ Kernels (one subpackage each, mirroring ``repro.kernels``):
 * ``chunk_router`` — ``dest_histogram2d``: per-row destination histogram of
   the exchange planner; ``dest_histogram``: destination histogram of one
   vector (``histogram_rows``); ``route_chunks``: per-chunk destinations
-  (and a destination histogram) of the checkpoint store;
+  (and a destination histogram) of one vector of descriptors, and
+  ``route_chunks_segmented`` (same source): the destinations of every
+  chunk of a whole checkpoint, one launch a save or restore;
 * ``chunk_pack`` — ``pack_chunks``: the send-order row gather;
 * ``fletcher`` — ``fletcher``: per-chunk checksums of a checkpoint leaf;
 * ``flash_attention`` — ``flash_attention``: blocked online-softmax
   attention over (B, S, H, D) q/k/v in bf16 (wgmma fed by TMA);
-  ``flash_attention_f32``: the same in float32 (SIMT FMAs).
+  ``flash_attention_f32``: the same in float32 (3xTF32 on the tensor
+  cores).
 
 Each subpackage holds ``<name>.py`` (the CUDA wrapper and its launch
 count), ``ops.py`` (dispatch: the kernel for CUDA tensors, the plain
@@ -103,14 +106,16 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu`` entry point: lazy build, binding, launch count.
+    """One C entry point ``name`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``): lazy build, binding, launch count.
 
     ``launches`` counts the successful launches of this kernel in the
     process; the wrappers call ``launch`` exactly where the kernel runs.
     """
 
-    def __init__(self, name: str, argtypes: Sequence):
+    def __init__(self, name: str, argtypes: Sequence, source: str = None):
         self.name = name
+        self.source = source or name
         self.argtypes = list(argtypes) + [ctypes.c_void_p]    # + stream
         self.launches = 0
         self._fn = None
@@ -118,7 +123,7 @@ class CudaKernel:
     def launch(self, *args) -> None:
         """Launch on PyTorch's current stream; raise on a CUDA error."""
         if self._fn is None:
-            fn = getattr(load(self.name), self.name)
+            fn = getattr(load(self.source), self.name)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn

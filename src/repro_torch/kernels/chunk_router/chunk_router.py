@@ -1,6 +1,7 @@
 """CUDA wrappers of the routing kernels: the destination histograms of one
 vector (``csrc/dest_histogram.cu``) and per row (``csrc/dest_histogram2d.cu``)
-and batched chunk routing (``csrc/route_chunks.cu``).
+and batched chunk routing (``csrc/route_chunks.cu``: one vector of
+descriptors, or every chunk of a checkpoint from its leaf table).
 
 They replace ``dest_histogram_kernel``, ``dest_histogram2d_kernel`` and
 ``route_chunks_kernel`` of ``repro.kernels.chunk_router.chunk_router``; each
@@ -92,3 +93,38 @@ def route_chunks(path_hash: torch.Tensor, chunk_id: torch.Tensor,
                         client.data_ptr(), dest.data_ptr(), counts.data_ptr(),
                         n, int(mode), n_nodes)
     return dest, counts
+
+
+ROUTE_CHUNKS_SEGMENTED = CudaKernel(
+    "route_chunks_segmented",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int], source="route_chunks")
+
+
+def route_chunks_segmented(leaves: torch.Tensor, n_chunks: int, *,
+                           n_nodes: int) -> torch.Tensor:
+    """Destinations of every chunk of a checkpoint: an (L, 3) int32 CUDA
+    leaf table of rows (path_hash, mode, first chunk) → (n_chunks,) int32
+    (kernel, one launch).
+
+    Chunk i belongs to the last leaf whose first chunk is ≤ i; its
+    destination is ``route_chunks``'s for that leaf's descriptor
+    (path_hash, chunk id i − first, client chunk id mod ``n_nodes``) under
+    the leaf's mode.  The table's first column of offsets must start at 0
+    and never decrease (``leaf_table`` builds it).  Raises on CPU tensors,
+    other dtypes, other shapes or non-contiguous input.
+    """
+    check_cuda("leaves", leaves, (torch.int32,), 2)
+    L = leaves.shape[0]
+    if leaves.shape[1] != 3 or not 1 <= L <= 50000:
+        raise ValueError(f"leaves must be (L, 3) with 1 <= L <= 50000, got "
+                         f"{tuple(leaves.shape)}")
+    if n_nodes < 1 or n_nodes > 50000:
+        raise ValueError(f"n_nodes must lie in [1, 50000], got {n_nodes}")
+    if not 0 <= n_chunks < 2 ** 31:
+        raise ValueError(f"n_chunks must lie in [0, 2^31), got {n_chunks}")
+    dest = torch.empty(n_chunks, dtype=torch.int32, device=leaves.device)
+    if n_chunks:
+        ROUTE_CHUNKS_SEGMENTED.launch(leaves.data_ptr(), L, dest.data_ptr(),
+                                      n_chunks, n_nodes)
+    return dest

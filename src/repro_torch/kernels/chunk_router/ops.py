@@ -2,6 +2,9 @@
 CPU (the twin of ``repro.kernels.chunk_router.ops``)."""
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch.kernels.chunk_router import chunk_router as cuda
@@ -9,7 +12,8 @@ from repro_torch.kernels.chunk_router.chunk_router import (  # noqa: F401
     dest_histogram, dest_histogram2d)
 from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
                                                   dest_histogram_ref,
-                                                  route_chunks_ref)
+                                                  route_chunks_ref,
+                                                  route_chunks_segmented_ref)
 
 
 def histogram_rows(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
@@ -47,8 +51,7 @@ def route_chunks(path_hash: torch.Tensor, chunk_id: torch.Tensor,
     descriptors: (n,) int32 each → ((n,), (n_nodes,)) int32.
 
     A CUDA batch goes through the ``route_chunks`` kernel (or raises), a
-    CPU batch through the bit-identical plain version.  The checkpoint
-    store routes each leaf's chunks with one call, on save and on restore.
+    CPU batch through the bit-identical plain version.
     """
     if path_hash.is_cuda:
         return cuda.route_chunks(path_hash, chunk_id, client, mode=mode,
@@ -58,3 +61,32 @@ def route_chunks(path_hash: torch.Tensor, chunk_id: torch.Tensor,
                                 n_nodes=n_nodes)
     raise ValueError(f"route_chunks: unsupported device "
                      f"{path_hash.device}")
+
+
+def leaf_table(path_hashes: Sequence[int], modes: Sequence[int],
+               n_chunks: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """The (L, 3) int32 leaf table of ``route_leaves`` — rows (path_hash,
+    mode, first chunk) — and the L + 1 chunk offsets that cut its
+    destinations back into leaves."""
+    offsets = np.zeros(len(n_chunks) + 1, np.int64)
+    np.cumsum(n_chunks, out=offsets[1:])
+    table = np.stack([np.asarray(path_hashes, np.int64),
+                      np.asarray(modes, np.int64), offsets[:-1]], axis=1)
+    return table.astype(np.int32).reshape(-1, 3), offsets
+
+
+def route_leaves(table: np.ndarray, n_chunks: int, *, n_nodes: int,
+                 device) -> torch.Tensor:
+    """Destinations of every chunk of a checkpoint, leaf after leaf: the
+    leaf table goes to ``device`` in one copy, then through the
+    ``route_chunks_segmented`` kernel (one launch) on a card, or its
+    bit-identical plain version on the CPU.  The checkpoint manager routes
+    a whole save, and a whole restore, with one call."""
+    leaves = torch.as_tensor(table, device=device)
+    if n_chunks == 0:
+        return torch.empty(0, dtype=torch.int32, device=leaves.device)
+    if leaves.is_cuda:
+        return cuda.route_chunks_segmented(leaves, n_chunks, n_nodes=n_nodes)
+    if leaves.device.type == "cpu":
+        return route_chunks_segmented_ref(leaves, n_chunks, n_nodes=n_nodes)
+    raise ValueError(f"route_leaves: unsupported device {leaves.device}")

@@ -50,3 +50,19 @@ def route_chunks_ref(path_hash: torch.Tensor, chunk_id: torch.Tensor,
         dest = (mix_hash_i32(path_hash, chunk_id) % n_nodes).to(torch.int32)
     counts = dest_histogram2d_ref(dest[None], n_bins=n_nodes)[0]
     return dest, counts
+
+
+def route_chunks_segmented_ref(leaves: torch.Tensor, n_chunks: int, *,
+                               n_nodes: int) -> torch.Tensor:
+    """(L, 3) leaf table of rows (path_hash, mode, first chunk) →
+    (n_chunks,) int32 destinations: chunk i of the concatenation routed as
+    ``route_chunks_ref`` routes chunk id i − first of the last leaf whose
+    first chunk is ≤ i, with client chunk id mod ``n_nodes``."""
+    ph, mode, first = leaves.to(torch.int64).unbind(1)
+    i = torch.arange(n_chunks, dtype=torch.int64, device=leaves.device)
+    leaf = torch.searchsorted(first.contiguous(), i, right=True) - 1
+    cid = (i - first[leaf]).to(torch.int32)
+    client = cid % n_nodes
+    hashed = mix_hash_i32(ph[leaf].to(torch.int32), cid) % n_nodes
+    local = (mode[leaf] == 1) | (mode[leaf] == 4)
+    return torch.where(local, client, hashed).to(torch.int32)

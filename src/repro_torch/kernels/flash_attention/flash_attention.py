@@ -1,6 +1,6 @@
 """CUDA wrappers of the flash-attention kernels: ``csrc/flash_attention.cu``
 (bf16, wgmma fed by TMA) and ``csrc/flash_attention_f32.cu`` (float32,
-SIMT).
+3xTF32 on the tensor cores).
 
 Both replace ``repro.kernels.flash_attention.flash_attention.
 flash_attention_bhsd``; ``flash_attention_bhsd`` below picks one by dtype
@@ -11,7 +11,7 @@ kernel, how its tiles are laid out and how it is built.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,35 +50,46 @@ class TmaGeometry(NamedTuple):
     swizzle: int
 
 
+def tma_problem(t: torch.Tensor) -> Optional[str]:
+    """Why TMA cannot read a (B, H, S, D) view in place, or None if it can:
+    a head dim that is not contiguous, a base address that is not 16-byte
+    aligned, or a stride (of a dim longer than 1) that is not a multiple of
+    16 bytes."""
+    if t.dim() != 4:
+        return f"expected a (B, H, S, D) view, got {t.dim()} dims"
+    if t.stride(3) != 1:
+        return "the head dim must be contiguous"
+    base = t.data_ptr() % TMA_ALIGN
+    if base:
+        return (f"TMA needs a {TMA_ALIGN}-byte aligned base; this view "
+                f"starts {base} bytes past one")
+    es = t.element_size()
+    for dim in (2, 1, 0):
+        st = t.stride(dim) * es
+        if t.shape[dim] > 1 and st % TMA_ALIGN:
+            return (f"TMA needs strides that are multiples of {TMA_ALIGN} "
+                    f"bytes; dim {dim} has {st}")
+    return None
+
+
 def tma_geometry(t: torch.Tensor) -> TmaGeometry:
     """The tensor map of a (B, H, S, D) view for ``csrc/flash_attention.cu``.
 
     The 128-byte swizzle (boxes of 64 bf16 columns) where D is a multiple
     of 64, else the 32-byte one (boxes of 16: D = 80).  Raises
-    ``ValueError`` where TMA cannot read the view in place: a head dim
-    that is not contiguous, a base address that is not 16-byte aligned, or
-    a stride (of a dim longer than 1) that is not a multiple of 16 bytes.
+    ``ValueError`` where TMA cannot read the view in place (``tma_problem``).
     The dim and stride order follow the view, so a (B, S, H, D) tensor
     passed as ``x.transpose(1, 2)`` maps to dims (D, S, H, B) with byte
     strides (H·D, D, S·H·D) × 2.
     """
-    if t.dim() != 4:
-        raise ValueError(f"expected a (B, H, S, D) view, got {t.dim()} dims")
+    problem = tma_problem(t)
+    if problem:
+        raise ValueError(problem)
     B, H, S, D = t.shape
-    sb, sh, ss, sd = t.stride()
+    sb, sh, ss, _ = t.stride()
     es = t.element_size()
-    if sd != 1:
-        raise ValueError("the head dim must be contiguous")
-    base = t.data_ptr() % TMA_ALIGN
-    if base:
-        raise ValueError(f"TMA needs a {TMA_ALIGN}-byte aligned base; this "
-                         f"view starts {base} bytes past one")
     strides = [ss * es, sh * es, sb * es]
     stepped = [n > 1 for n in (S, H, B)]
-    for dim, st, step in zip((2, 1, 0), strides, stepped):
-        if step and st % TMA_ALIGN:
-            raise ValueError(f"TMA needs strides that are multiples of "
-                             f"{TMA_ALIGN} bytes; dim {dim} has {st}")
     # a dim of size 1 is never stepped: give it a stride TMA accepts
     filler = max([D * es] + [st for st, step in zip(strides, stepped)
                              if step])
@@ -100,8 +111,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides multiples of 16 bytes (``tma_geometry``).  A contiguous
     tensor, ``project_qkv``'s outputs and their (B, S, H, D) →
     (B, H, S, D) transposes all are; a view that is not (a slice one
-    element in, say) raises.  float32 goes to the SIMT kernel
-    (``FLASH_ATTENTION_F32``), which needs only the head dim contiguous.
+    element in, say) raises.  float32 goes to the 3xTF32 tensor-core
+    kernel (``FLASH_ATTENTION_F32``), which needs only the head dim
+    contiguous.
     This is a dispatch by dtype: nothing falls back from one kernel to the
     other.  Raises on CPU tensors, mismatched shapes, devices or dtypes,
     and head dims the kernels have no instance for.

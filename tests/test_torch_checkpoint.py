@@ -26,9 +26,11 @@ from repro.kernels.fletcher.fletcher import fletcher_kernel
 from repro.kernels.fletcher.ref import fletcher_ref as j_fletcher_ref
 from repro_torch.checkpoint.manager import (CHUNK_WORDS, CheckpointManager,
                                             flatten_state, unflatten_like)
-from repro_torch.core.layouts import LayoutMode, LayoutParams
+from repro_torch.core.layouts import LayoutMode, LayoutParams, str_hash
 from repro_torch.core.policy import LayoutPolicy
-from repro_torch.kernels.chunk_router.ops import route_chunks
+from repro_torch.checkpoint import manager as manager_mod
+from repro_torch.kernels.chunk_router.ops import (leaf_table, route_chunks,
+                                                  route_leaves)
 from repro_torch.kernels.chunk_router.ref import route_chunks_ref
 from repro_torch.kernels.fletcher.ops import as_words, chunk_checksums
 from repro_torch.kernels.fletcher.ref import fletcher_chunks_ref, fletcher_ref
@@ -174,6 +176,95 @@ def test_route_chunks_out_of_range_client_counts_nowhere():
                             torch.as_tensor(cl), mode=1, n_nodes=4)
     np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
     np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+
+
+def _leaves(modes, n_chunks):
+    hashes = RNG.randint(0, 2 ** 31 - 1, len(n_chunks))
+    table, offsets = leaf_table(hashes, modes, n_chunks)
+    return hashes, table, offsets
+
+
+def _per_leaf(hashes, modes, n_chunks, nodes):
+    """Each leaf routed alone, as the manager routed it with one
+    ``route_chunks`` launch a leaf: descriptors (path hash, chunk id,
+    chunk id mod N)."""
+    out = []
+    for ph, mode, n in zip(hashes, modes, n_chunks):
+        cid = np.arange(n, dtype=np.int32)
+        d, _ = route_chunks_ref(torch.full((n,), int(ph), dtype=torch.int32),
+                                torch.as_tensor(cid),
+                                torch.as_tensor(cid % nodes), mode=int(mode),
+                                n_nodes=nodes)
+        jd, _ = j_route_ref(jnp.full((n,), int(ph), jnp.int32),
+                            jnp.asarray(cid), jnp.asarray(cid % nodes),
+                            mode=int(mode), n_nodes=nodes)
+        np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+        out.append(d.numpy())
+    return out
+
+
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+@pytest.mark.parametrize("nodes", [8, 32])
+def test_route_leaves_plain_matches_per_leaf_routing(mode, nodes):
+    """A whole checkpoint's leaf table (leaves of 1 to 4608 chunks) routed
+    at once: each leaf's slice equals its own ``route_chunks`` routing
+    (and the reference's oracle), bit for bit."""
+    n_chunks = [1, 4608, 3, 257, 1, 64, 65]
+    modes = [mode] * len(n_chunks)
+    hashes, table, offsets = _leaves(modes, n_chunks)
+    assert table.dtype == np.int32 and table.shape == (7, 3)
+    np.testing.assert_array_equal(table[:, 2], offsets[:-1])
+    dest = route_leaves(table, int(offsets[-1]), n_nodes=nodes, device="cpu")
+    assert dest.dtype == torch.int32 and dest.numel() == sum(n_chunks)
+    want = _per_leaf(hashes, modes, n_chunks, nodes)
+    for i, w in enumerate(want):
+        np.testing.assert_array_equal(
+            dest[offsets[i]:offsets[i + 1]].numpy(), w)
+
+
+def test_route_leaves_mixed_modes_and_empty_leaves():
+    """Leaves of different modes (a heterogeneous policy) and leaves with
+    no chunks, which own no slice of the destinations."""
+    n_chunks = [5, 0, 70, 0, 0, 1, 130]
+    modes = [4, 2, 1, 3, 4, 3, 2]
+    hashes, table, offsets = _leaves(modes, n_chunks)
+    dest = route_leaves(table, int(offsets[-1]), n_nodes=16, device="cpu")
+    want = _per_leaf(hashes, modes, n_chunks, 16)
+    np.testing.assert_array_equal(dest.numpy(), np.concatenate(want))
+
+
+def test_save_and_restore_route_every_leaf_in_one_call(monkeypatch):
+    """One routing call a save and one a restore, whatever the number of
+    leaves; the chunks land where per-leaf routing put them."""
+    calls = []
+    real = manager_mod.route_leaves
+
+    def counted(table, n, **kw):
+        calls.append(len(table))
+        return real(table, n, **kw)
+
+    monkeypatch.setattr(manager_mod, "route_leaves", counted)
+    np_state = _np_state()
+    policy = POLICIES[4][2]
+    with tempfile.TemporaryDirectory() as d:
+        tm = CheckpointManager(d, policy, async_save=False, device="cpu")
+        tm.save(2, _torch_state(np_state))
+        n_leaves = len(flatten_state(_torch_state(np_state)))
+        assert calls == [n_leaves]
+        restored, _ = tm.restore(2, _torch_state(np_state))
+        assert calls == [n_leaves, n_leaves]
+        for (k, a), (_, b) in zip(flatten_state(restored),
+                                  flatten_state(_torch_state(np_state))):
+            assert torch.equal(_bits(a), _bits(b)), k
+        for key, t in flatten_state(_torch_state(np_state)):
+            path = f"{tm.scope}/2/{key}"
+            n = len(chunk_checksums(as_words(t), CHUNK_WORDS))
+            cid = torch.arange(n, dtype=torch.int32)
+            want, _ = route_chunks(torch.full_like(cid, str_hash(path)), cid,
+                                   cid % 32, n_nodes=32,
+                                   mode=int(policy.mode_for_path(path)))
+            for c, node in enumerate(want.tolist()):
+                assert (str_hash(path), c) in tm.store.nodes[node]
 
 
 # ---------------------------------------------------------------------------

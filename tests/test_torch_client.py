@@ -243,18 +243,132 @@ def test_client_requires_a_device_without_cuda(monkeypatch):
 
 
 def test_auto_pick_follows_the_fallback_table():
+    """The fallback table is the reference's, and a pick from it (the
+    explicit-table, nearest-cell path) is the reference's."""
+    from repro.core import exchange_select as jsel
     from repro_torch.core import exchange_select
-    assert exchange_select.pick_backend(4, 8, 8) == "dense"
-    assert exchange_select.pick_backend(32, 8, 262144) == "compacted"
-    assert exchange_select.pick_backend(64, 256, 16) == "compacted"
-    jax_table = __import__("repro.core.exchange_select",
-                           fromlist=["FALLBACK_TABLE"]).FALLBACK_TABLE
-    assert exchange_select.FALLBACK_TABLE == jax_table
-    for n, q, w, _ in jax_table:
-        assert exchange_select.pick_backend(n, q, w) == \
-            __import__("repro.core.exchange_select",
-                       fromlist=["pick_backend"]).pick_backend(
-                n, q, w, jax_table)
+    table = exchange_select.FALLBACK_TABLE
+    assert table == jsel.FALLBACK_TABLE
+    assert exchange_select.pick_backend(4, 8, 8, table) == "dense"
+    assert exchange_select.pick_backend(32, 8, 262144, table) == "compacted"
+    assert exchange_select.pick_backend(64, 256, 16, table) == "compacted"
+    for n, q, w, _ in table:
+        assert exchange_select.pick_backend(n, q, w, table) == \
+            jsel.pick_backend(n, q, w, table)
+
+
+# N x q x words of the comparison in ROADMAP Queue 3a item 2: 288 shapes
+PICK_QS = (1, 4, 8, 16, 32, 64, 128, 256)
+PICK_WORDS = (1, 4, 16, 64, 1024, 262147)
+
+
+@pytest.mark.parametrize("n_nodes", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("path", ["auto", "explicit"])
+def test_pick_backend_matches_reference_on_the_grid(n_nodes, path):
+    """``exchange="auto"`` picks the reference's plane: the stump fit from
+    the committed artifacts, and the nearest cell of an explicit table."""
+    from repro.core import exchange_select as jsel
+    from repro_torch.core import exchange_select
+    table = jsel.load_crossover() if path == "explicit" else None
+    for q in PICK_QS:
+        for w in PICK_WORDS:
+            assert exchange_select.pick_backend(n_nodes, q, w, table) == \
+                jsel.pick_backend(n_nodes, q, w, table), (n_nodes, q, w)
+    if path == "auto" and n_nodes == 32:        # chip_smoke.py's shape
+        assert exchange_select.pick_backend(32, 8, 262147) == "compacted"
+
+
+def _artifacts(tmp_path, case):
+    """A directory of benchmark artifacts, well formed or not."""
+    import json
+    root = tmp_path / case
+    root.mkdir()
+    row = dict(n_nodes=4, batch=8, words=8, write_us=1.0, read_us=1.0,
+               stat_us=1.0)
+    if case == "not_json":
+        (root / "BENCH_pr3.json").write_text("{rows: [")
+    elif case == "bad_rows":
+        (root / "BENCH_pr3.json").write_text(json.dumps(
+            {"rows": [7, {"n_nodes": "x"}, dict(row, backend="dense")]}))
+    elif case == "fallback_file":
+        (root / "BENCH_pr3.json").write_text("[]")
+        (root / "BENCH_pr2.json").write_text(json.dumps({"rows": [
+            dict(row, backend="dense"),
+            dict(row, backend="compacted", read_us=0.5),
+            dict(row, n_nodes=16, batch=64, backend="dense", read_us=9.0),
+            dict(row, n_nodes=16, batch=64, backend="compacted")]}))
+    elif case == "fabric":
+        (root / "BENCH_pr5.json").write_text(json.dumps({"fabric": {
+            "rows": [{"us_per_call": 10.0, "exchanged_bytes": 1000},
+                     {"us_per_call": 30.0, "exchanged_bytes": 9000},
+                     {"us_per_call": "x"}]}}))
+    elif case == "flat_fabric":
+        (root / "BENCH_pr5.json").write_text(json.dumps({"fabric": {
+            "rows": [{"us_per_call": 10.0, "exchanged_bytes": 1000},
+                     {"us_per_call": 10.0, "exchanged_bytes": 1000}]}}))
+    return str(root)
+
+
+@pytest.mark.parametrize("case", ["repo", "missing", "not_json", "bad_rows",
+                                  "fallback_file", "fabric", "flat_fabric"])
+def test_crossover_loaders_match_reference(tmp_path, case):
+    """``load_crossover``, ``fabric_model`` and ``auto_accuracy`` give the
+    reference's values on the committed artifacts and on missing or
+    malformed ones."""
+    from repro.core import exchange_select as jsel
+    from repro_torch.core import exchange_select
+    root = None if case == "repo" else _artifacts(tmp_path, case)
+    table = exchange_select.load_crossover(root)
+    assert table == jsel.load_crossover(root)
+    assert exchange_select.fabric_model(root) == jsel.fabric_model(root)
+    assert exchange_select.auto_accuracy(table) == jsel.auto_accuracy(table)
+    if case == "repo":
+        assert table != exchange_select.FALLBACK_TABLE
+        assert exchange_select.fabric_model()[2]
+
+
+def test_adopted_state_is_not_changed_under_its_caller():
+    """One state adopted by two clients, each writing something else: the
+    state stays as it was, and each client's tables equal a JAX client's
+    that adopted the same state (JAX arrays are immutable)."""
+    rng = np.random.RandomState(11)
+    q = 4
+    jc0, tc0 = _pair(exchange="compacted")
+    jr, tr = _requests(jc0, tc0, _paths(q), rng, q)
+    jc0.write(jr)
+    tc0.write(tr)
+    js, ts = jc0.state, tc0.state
+    snapshot = bb.to_numpy(ts)
+    jpol = JLayoutPolicy.from_scopes(SCOPES, n_nodes=N, default=2)
+    tpol = LayoutPolicy.from_scopes(SCOPES, n_nodes=N, default=2)
+    for tag in ("x", "y"):
+        jc = JBBClient(jpol, words=W, state=js, exchange="compacted")
+        tc = BBClient(tpol, device="cpu", words=W, state=ts,
+                      exchange="compacted")
+        jr2, tr2 = _requests(jc, tc, _paths(q, tag=tag), rng, q)
+        jc.write(jr2)
+        tc.write(tr2)
+        jc.remove(jr)
+        tc.remove(tr)
+        assert_state_equal(jc.state, tc.state)
+        for a, b in zip(snapshot, bb.to_numpy(ts)):
+            np.testing.assert_array_equal(a, b)
+    assert_state_equal(js, ts)
+
+
+def test_donated_state_is_adopted_in_place():
+    """``donate=True``: the client takes the caller's tables themselves."""
+    _, tc0 = _pair(exchange="compacted")
+    ts = tc0.state
+    tc = BBClient(LayoutPolicy.from_scopes(SCOPES, n_nodes=N, default=2),
+                  device="cpu", words=W, state=ts, donate=True)
+    assert tc.state is ts
+    before = ts.data_count.clone()
+    rng = np.random.RandomState(5)
+    tr = tc.encode(_unique_paths(3), chunk_id=rng.randint(0, 4, (N, 3)),
+                   payload=rng.randint(0, 99, (N, 3, W)))
+    tc.write(tr)
+    assert int(ts.data_count.sum()) > int(before.sum())
 
 
 @pytest.mark.parametrize("exchange", ["dense", "compacted"])

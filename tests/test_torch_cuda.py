@@ -11,17 +11,18 @@ import torch
 from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS, pack_chunks
 from repro_torch.kernels.chunk_pack.ops import gather_rows
 from repro_torch.kernels.chunk_pack.ref import pack_chunks_ref
-from repro_torch.kernels.chunk_router.chunk_router import (DEST_HISTOGRAM,
-                                                          DEST_HISTOGRAM2D,
-                                                          ROUTE_CHUNKS)
+from repro_torch.kernels.chunk_router.chunk_router import (
+    DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS, ROUTE_CHUNKS_SEGMENTED)
 from repro_torch.kernels.chunk_router.chunk_router import \
     route_chunks as route_chunks_cuda
 from repro_torch.kernels.chunk_router.ops import (histogram_rows,
                                                   histogram_rows2d,
-                                                  route_chunks)
+                                                  leaf_table, route_chunks,
+                                                  route_leaves)
 from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
                                                   dest_histogram_ref,
-                                                  route_chunks_ref)
+                                                  route_chunks_ref,
+                                                  route_chunks_segmented_ref)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
     FLASH_ATTENTION, FLASH_ATTENTION_F32, flash_attention_bhsd)
@@ -153,7 +154,7 @@ def test_cuda_checkpoint_roundtrip_goes_through_both_kernels(cuda, tmp_path):
              "b": torch.randn(5, 5, 5, device=cuda).to(torch.bfloat16),
              "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
     mgr = CheckpointManager(str(tmp_path), policy, async_save=True)
-    f0, r0 = FLETCHER.launches, ROUTE_CHUNKS.launches
+    f0, r0 = FLETCHER.launches, ROUTE_CHUNKS_SEGMENTED.launches
     mgr.save(1, state)
     mgr.wait()
     restored, step = mgr.restore(1, state)
@@ -162,7 +163,29 @@ def test_cuda_checkpoint_roundtrip_goes_through_both_kernels(cuda, tmp_path):
         assert restored[k].is_cuda and restored[k].dtype == state[k].dtype
         assert torch.equal(restored[k].reshape(-1).view(torch.uint8),
                            state[k].reshape(-1).view(torch.uint8))
-    assert FLETCHER.launches == f0 + 6 and ROUTE_CHUNKS.launches == r0 + 6
+    # a checksum launch a leaf; one routing launch a save and one a restore
+    assert FLETCHER.launches == f0 + 6
+    assert ROUTE_CHUNKS_SEGMENTED.launches == r0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves,nodes", [(1, 32), (251, 32), (251, 64),
+                                            (20000, 7), (3, 20000)])
+def test_cuda_route_leaves_matches_plain(cuda, n_leaves, nodes):
+    """A whole checkpoint's chunks routed in one launch, leaves of every
+    mode and of 0 to 4608 chunks; 20000 leaves take the kernel's shared
+    offsets past 48 KB."""
+    n_chunks = RNG.randint(0, 4609 if n_leaves < 1000 else 4, n_leaves)
+    n_chunks[0] = max(n_chunks[0], 1)
+    table, offsets = leaf_table(RNG.randint(0, 2 ** 31 - 1, n_leaves),
+                                RNG.randint(1, 5, n_leaves), n_chunks)
+    before = ROUTE_CHUNKS_SEGMENTED.launches
+    got = route_leaves(table, int(offsets[-1]), n_nodes=nodes, device=cuda)
+    torch.cuda.synchronize()
+    assert ROUTE_CHUNKS_SEGMENTED.launches == before + 1
+    want = route_chunks_segmented_ref(torch.as_tensor(table, device=cuda),
+                                      int(offsets[-1]), n_nodes=nodes)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -256,26 +279,100 @@ def test_cuda_flash_attention_reads_any_strides(cuda, dtype, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1000, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_f32_tensor_cores_hold_2e5(cuda, D, S, causal):
+    """The float32 kernel (3xTF32 on the tensor cores) over every head dim
+    and ragged S, unit-normal q/k/v: within 2e-5 of the plain version."""
+    q, k, v = (torch.as_tensor(RNG.randn(2, S, 3, D).astype(np.float32),
+                               device=cuda) for _ in range(3))
+    before = _launched()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _launched() == _one_more(before, torch.float32)
+    want = flash_attention_ref(q, k, v, scale=D ** -0.5, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 96, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_pads_head_dims(cuda, D, dtype):
+    """Head dims without an instance go through the next one, zero-padded,
+    with the scale of the true D."""
+    q, k, v = (torch.as_tensor(RNG.randn(2, 130, 3, D).astype(np.float32),
+                               device=cuda).to(dtype) for _ in range(3))
+    before = _launched()
+    got = flash_attention(q, k, v, causal=True, block_q=256, block_k=128,
+                          interpret=False)
+    torch.cuda.synchronize()
+    assert _launched() == _one_more(before, dtype)
+    assert got.shape == q.shape and got.dtype == dtype
+    want = flash_attention_ref(q, k, v, scale=D ** -0.5, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 96])
+def test_cuda_flash_attention_float16_runs_the_float32_kernel(cuda, D):
+    """float16 is computed by the float32 kernel and rounded once: within
+    2e-3 (one float16 ulp below 2 is ≤ 9.8e-4) of the float32 plain
+    version rounded to float16."""
+    q, k, v = (torch.as_tensor(RNG.randn(2, 200, 3, D).astype(np.float16),
+                               device=cuda) for _ in range(3))
+    before = _launched()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _launched() == _one_more(before, torch.float32)
+    assert got.dtype == torch.float16
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               scale=D ** -0.5, causal=True).half()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                               rtol=2e-3)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_misaligned_bf16_view_raises(cuda):
     """A bf16 view one element past a 16-byte boundary cannot be read by
-    TMA: the wrapper raises and launches nothing (no other kernel takes
-    it)."""
+    TMA: the kernel's wrapper raises and launches nothing."""
     flat = torch.randn(2 * 96 * 3 * 64 + 1, device=cuda).to(torch.bfloat16)
-    bad = flat[1:].view(2, 96, 3, 64)
-    good = torch.randn((2, 96, 3, 64), device=cuda).to(torch.bfloat16)
+    bad = flat[1:].view(2, 96, 3, 64).transpose(1, 2)
+    good = torch.randn((2, 3, 96, 64), device=cuda).to(torch.bfloat16)
     before = _launched()
     with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_attention(bad, good, good)
+        flash_attention_bhsd(bad, good, good, scale=0.125)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_attention(good, good, bad)
+        flash_attention_bhsd(good, good, bad, scale=0.125)
     assert _launched() == before
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_misaligned_bf16_view_through_entry_point(cuda):
+    """The entry point copies a view TMA cannot read and gives the plain
+    version's result on it (2e-2, bf16), with one launch."""
+    flat = torch.randn(2 * 96 * 3 * 64 + 1, device=cuda).to(torch.bfloat16)
+    bad = flat[1:].view(2, 96, 3, 64)
+    good = torch.randn((2, 96, 3, 64), device=cuda).to(torch.bfloat16)
+    for args in ((bad, good, good), (good, good, bad)):
+        before = _launched()
+        got = flash_attention(*args)
+        torch.cuda.synchronize()
+        assert _launched() == _one_more(before, torch.bfloat16)
+        want = flash_attention_ref(*args, scale=0.125, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_unsupported_input(cuda):
-    x = torch.zeros((1, 64, 2, 96), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    x = torch.zeros((1, 64, 2, 320), device=cuda)
+    with pytest.raises(ValueError, match="head dim 320"):
         flash_attention(x, x, x)
+    w = torch.zeros((1, 2, 64, 96), device=cuda)
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_attention_bhsd(w, w, w, scale=0.1)
     y = torch.zeros((1, 64, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention(y, y.to(torch.bfloat16), y)

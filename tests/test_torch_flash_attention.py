@@ -24,8 +24,11 @@ from repro.models.attention import online_softmax_attention
 from repro_torch.configs import all_configs
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIMS, flash_attention_bhsd, tma_geometry)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+    HEAD_DIMS, flash_attention_bhsd, tma_geometry, tma_problem)
+from repro_torch.kernels.flash_attention.ops import (attention_bshd,
+                                                     padded_head_dim)
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     flash_attention_ref)
 from repro_torch.models import layers as nnl
 from repro_torch.models.attention import masked_attention, project_qkv
 from repro_torch.models.registry import build_model
@@ -127,6 +130,157 @@ def test_flash_attention_equals_the_ports_global_layer_attention():
     got = flash_attention(q, k, v, causal=True)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
                                rtol=2e-5)
+
+
+# --- what the entry point does around the kernel on CUDA, with the plain
+# version in the kernel's place --------------------------------------------
+
+def _plain_bhsd(q, k, v, *, scale, causal):
+    """The plain version over (B, H, S, D) views, where the CUDA path puts
+    ``flash_attention_bhsd``."""
+    B, H, S, D = q.shape
+    o = attention_ref(*(x.reshape(B * H, S, D) for x in (q, k, v)),
+                      scale=scale, causal=causal)
+    return o.reshape(B, H, S, D)
+
+
+@pytest.mark.parametrize("D", [16, 32, 96, 192])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dim_matches_reference_pallas(D, causal):
+    """Head dims without an instance (xlstm's and MLA's 192, the reduced
+    configs' 16) are zero-padded to the next one and cut back, with the
+    scale of the true D: the reference's Pallas kernel (interpret mode),
+    which pads to 128 lanes, within 2e-5 in float32."""
+    (jq, jk, jv), (tq, tk, tv), tol = _qkv((2, 96, 2, D), "float32")
+    assert padded_head_dim(D) == {16: 64, 32: 64, 96: 128, 192: 256}[D]
+    ref = j_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                  interpret=True)
+    got = attention_bshd(tq, tk, tv, scale=D ** -0.5, causal=causal,
+                         kernel=_plain_bhsd)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 96, 2, D)
+    assert got.is_contiguous()
+    _close(got, ref, tol)
+
+
+def test_float16_goes_through_float32_and_rounds_once():
+    """float16 runs in float32 and is rounded once to float16, as the
+    reference's body casts to float32: within 2e-3 (one float16 ulp of a
+    value below 2 is at most 2^-10 ≈ 9.8e-4, plus float32 summation)."""
+    arrs = [RNG.randn(2, 80, 2, 64).astype(np.float16) for _ in range(3)]
+    ref = j_flash(*(jnp.asarray(a) for a in arrs), causal=True, block_q=64,
+                  block_k=64, interpret=True)
+    got = attention_bshd(*(torch.as_tensor(a) for a in arrs),
+                         scale=64 ** -0.5, causal=True, kernel=_plain_bhsd)
+    assert got.dtype == torch.float16
+    _close(got, ref, 2e-3)
+
+
+def test_head_dim_above_256_raises():
+    with pytest.raises(ValueError, match="up to 256"):
+        padded_head_dim(257)
+    x = torch.zeros((1, 8, 1, 320))
+    with pytest.raises(ValueError, match="head dim 320"):
+        attention_bshd(x, x, x, scale=0.1, causal=True, kernel=_plain_bhsd)
+
+
+@pytest.mark.parametrize("case", ["misaligned", "strided", "head_dim"])
+def test_views_the_kernel_cannot_read_are_copied(case):
+    """A bf16 view TMA cannot read, or a float32 view whose head dim is not
+    contiguous, reaches the kernel as a copy it can read; the result is
+    the plain version's on the view itself."""
+    dtype = torch.float32 if case == "head_dim" else torch.bfloat16
+    if case == "misaligned":
+        x = torch.as_tensor(RNG.randn(2 * 96 * 3 * 64 + 1).astype(
+            np.float32)).to(dtype)[1:].view(2, 96, 3, 64)
+    elif case == "strided":
+        x = torch.as_tensor(RNG.randn(2, 96, 3, 68).astype(np.float32)).to(
+            dtype)[..., :64]
+    else:
+        x = torch.as_tensor(RNG.randn(2, 96, 3, 128).astype(np.float32))[
+            ..., ::2]
+    assert (tma_problem(x.transpose(1, 2)) if dtype == torch.bfloat16
+            else x.stride(3) != 1)
+    seen = []
+
+    def kernel(q, k, v, *, scale, causal):
+        for t in (q, k, v):
+            assert (tma_problem(t) is None if t.dtype == torch.bfloat16
+                    else t.stride(3) == 1)
+        seen.append(q.dtype)
+        return _plain_bhsd(q, k, v, scale=scale, causal=causal)
+
+    y = torch.as_tensor(RNG.randn(2, 96, 3, 64).astype(np.float32)).to(dtype)
+    got = attention_bshd(x, y, y, scale=0.125, causal=True, kernel=kernel)
+    assert seen == [dtype]
+    want = flash_attention_ref(x, y, y, scale=0.125, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_entry_point_accepts_the_reference_keywords(causal):
+    """``block_q``, ``block_k`` and ``interpret`` are the TPU kernel's:
+    accepted and ignored."""
+    _, (tq, tk, tv), _ = _qkv((1, 70, 2, 64), "float32")
+    want = flash_attention(tq, tk, tv, causal=causal)
+    got = flash_attention(tq, tk, tv, causal=causal, block_q=128,
+                          block_k=64, interpret=True)
+    assert torch.equal(got, want)
+
+
+# --- the float32 kernel's arithmetic: 3xTF32, modelled in torch -----------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 significand
+    bits kept, to nearest, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b on TF32 operands, float32 sums: one pass (hi·hi), or the
+    kernel's three (hi·lo + lo·hi + hi·hi, lo = tf32(x − hi))."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _tf32_attention(q, k, v, scale, passes, bk=32):
+    """(S, D) causal attention as the kernel runs it: 32-key tiles, the
+    online softmax in float32, both products through ``_tf32_product``."""
+    S = q.shape[0]
+    m = torch.full((S, 1), -1e30)
+    l = torch.zeros(S, 1)
+    acc = torch.zeros(S, q.shape[1])
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        s = _tf32_product(q, k[k0:k0 + bk].T, passes) * scale
+        cols = torch.arange(k0, min(k0 + bk, S))[None, :]
+        s = torch.where(cols <= rows, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.max(1, keepdim=True).values)
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(1, keepdim=True)
+        acc = acc * corr + _tf32_product(p, v[k0:k0 + bk], passes)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+@pytest.mark.parametrize("S,D", [(128, 64), (256, 256)])
+def test_3xtf32_holds_float32_accuracy_where_one_pass_does_not(S, D):
+    """Against float64 on unit-normal q/k/v: three TF32 passes stay within
+    the float32 tolerance 2e-5 (about 1e-6), one pass does not (about
+    1e-3), so the check tells the two apart."""
+    q, k, v = (torch.as_tensor(RNG.randn(S, D).astype(np.float32))
+               for _ in range(3))
+    s = (q.double() @ k.double().T) * D ** -0.5
+    s = s.masked_fill(~torch.ones_like(s, dtype=torch.bool).tril(),
+                      float("-inf"))
+    exact = torch.softmax(s, -1) @ v.double()
+    err = {p: float((_tf32_attention(q, k, v, D ** -0.5, p).double() -
+                     exact).abs().max()) for p in (1, 3)}
+    assert err[3] < 2e-5 < err[1], err
 
 
 def test_flash_attention_kernel_wrapper_rejects_cpu_tensors():
