@@ -5,15 +5,19 @@ plane, then fault-tolerant training of gemma3-1b with Proteus checkpoints.
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which must succeed or the run fails without a result line:
 
-  (a) build the seven hand-written kernel libraries from
+  (a) build the eight hand-written kernel libraries from
       ``src/repro_torch/csrc`` with nvcc for sm_90a, all sources compiled
       in parallel, and check that the bf16 attention library's SASS holds
-      wgmma (``HGMMA``) and TMA loads (``UTMALDG``), and the float32 one's
-      tensor-core products with a TF32 type (``HMMA ... TF32``);
+      wgmma (``HGMMA``) and TMA loads (``UTMALDG``), and the two float32
+      ones' tensor-core products with a TF32 type (``HMMA ... TF32``);
+      beside them ``dest_histogram.cu`` once more with the cluster path in
+      another block shape (``HIST_OTHER_SHAPE``), for timing only;
   (b) each kernel of the data plane and the checkpoint path against its
       plain PyTorch version on the card, bit for bit, at the shapes its
       main path gives it and at sentinel and edge shapes (``fletcher`` up
       to the full embedding leaf, 302 M words in 4608 chunks;
+      ``fletcher_segmented`` on mixed leaves: empty, one word, unaligned
+      bases, 3000 leaves;
       ``route_chunks`` in all four modes; ``route_chunks_segmented`` on a
       whole gemma3-1b save's leaf table, 251 leaves, and on mixed modes,
       empty leaves and 20000 leaves);
@@ -38,10 +42,22 @@ Phases, each of which must succeed or the run fails without a result line:
       on which the kernel's wrapper must raise with no launch and which
       the entry point copies (2e-2); head dims 16/32/96/192 padded to an
       instance, in both dtypes, with the reference's keywords; float16
-      through the float32 kernel (2e-3); the histogram's sweep, sentinels
-      and 20000 bins; kernel, plain, library (SDPA, timed in turns with
-      the kernel, ``bincount``) and bound times (float32: 3xTF32 at the
-      TF32 peak, and the float32 SIMT peak beside it);
+      through the float32 kernel (2e-3); head dims above 256 (320, 512
+      and 640, float32 and bf16, causal and full) through the wide float32
+      kernel (its count zeroed just before, above 0 after; 2e-5 / 2e-2);
+      the histogram's sweep, sentinels, 20000 bins, the save's
+      destinations and 16 M values into 32 bins, both of its paths;
+      kernel, plain, library (SDPA, timed in turns with the kernel,
+      ``bincount``) and bound times (float32: 3xTF32 at the TF32 peak, and
+      the float32 SIMT peak beside it; the wide kernel at (4, 1024, 4,
+      512)); the histogram's one-cluster path against the same path in
+      ``HIST_OTHER_SHAPE``, its grid path (the earlier design) and
+      ``bincount`` from 45,884 to 16 M values, with the device operations
+      a call puts on the card.  A profiler reading counts only where two
+      sessions agree on the operations a call put on the card and read at
+      least the work's bound, else the time is taken by CUDA events behind
+      a sleep (``device_ms``); a kernel whose time stays below its bound
+      fails the run;
   (c) the deployment, through ``BBClient``: 32 burst-buffer nodes, 1 MiB
       chunks, the heterogeneous policy (``/bb/ckpt`` HYBRID, ``/bb/shared``
       DIST_HASH, default CENTRAL_META), 256 chunk slots and 1024 metadata
@@ -65,13 +81,17 @@ Phases, each of which must succeed or the run fails without a result line:
       checksum with a fallback, and a crash restored from a checkpoint
       verified on the card; the FailureLog and final step must equal what
       the JAX loop gives under the same plan (pinned below), both
-      checkpoint kernels' launch counts (zeroed just before) above 0, and
-      the routing's exactly one a save and one a restore;
+      checkpoint kernels' launch counts (zeroed just before) above 0, the
+      routing's exactly one a save and one a restore, the checksum's one a
+      save and one per group of leaves on restore;
   (g) checkpoint and step times: a save (blocking part and async part) and
-      a restore of the full final state (12 GB), checked bit for bit; the
-      kernels' times per save against their bounds, and the routing's host
-      time per save; the train step's time, tokens/s and a profile of one
-      step.
+      a restore of the full final state (12 GB), checked bit for bit, and
+      a restore rejected by a corrupt chunk in a middle leaf;
+      ``fletcher_segmented`` over the whole save bit for bit against its
+      plain version and the 251 per-leaf ``fletcher`` results, its time
+      against its bound beside the per-leaf launches'; the routing's time
+      and host time per save; the train step's time, tokens/s and a
+      profile of one step.
 
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -82,6 +102,7 @@ no CUDA card is present or any phase fails.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -93,6 +114,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
+from statistics import median
 
 import numpy as np
 import torch
@@ -138,6 +160,9 @@ TRAIN_EXPECTED = {
 GLOBAL_LAYER = 5
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 TIE_GAP = 10.0                 # scaled-score lead of a decided softmax row
+# the histogram's cluster path in one more block shape, built from the same
+# source with -D beside the shipped one, for the timing in phase b2
+HIST_OTHER_SHAPE = {"CLUSTER_THREADS": 512, "LOADS": 4}
 
 # SHA-256 digests pinned by the JAX package's tests (tests/test_policy.py,
 # SEED_DIGESTS: the seed engine's outputs for the fixed trace of
@@ -185,9 +210,31 @@ def sass_count(kernels, name: str, op: str, also: str = "") -> int:
     return sum(op in line and also in line for line in sass.stdout.splitlines())
 
 
+def hist_other_library() -> Path:
+    """Where ``dest_histogram.cu`` built with ``HIST_OTHER_SHAPE`` goes."""
+    from repro_torch import kernels
+    lib = kernels.library_path("dest_histogram")
+    tag = "-".join(f"{k.lower()}{v}" for k, v in HIST_OTHER_SHAPE.items())
+    return lib.with_name(f"{lib.stem}-{tag}.so")
+
+
 def phase_build(kernels) -> None:
     t0 = time.perf_counter()
-    reports = kernels.build(kernels.KERNELS)
+    other = hist_other_library()
+    other.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS,
+         *(f"-D{k}={v}" for k, v in HIST_OTHER_SHAPE.items()),
+         "-o", str(other), str(kernels.CSRC / "dest_histogram.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        reports = kernels.build(kernels.KERNELS)
+    finally:
+        out, _ = proc.communicate()
+    check(proc.returncode == 0, f"dest_histogram with {HIST_OTHER_SHAPE}: "
+                                f"nvcc exit {proc.returncode}:\n{out}")
+    log(f"[build] dest_histogram with {HIST_OTHER_SHAPE} -> "
+        f"build/{other.name}")
     for name in kernels.KERNELS:
         lib = kernels.library_path(name)
         check(lib.exists(), f"{name}: no library after the build")
@@ -203,10 +250,11 @@ def phase_build(kernels) -> None:
     log(f"[build] flash_attention SASS: {counts}")
     for op, n in counts.items():
         check(n > 0, f"flash_attention's SASS holds no {op}")
-    tf32 = sass_count(kernels, "flash_attention_f32", "HMMA", "TF32")
-    log(f"[build] flash_attention_f32 SASS: {tf32} HMMA lines with a TF32 "
-        f"type (3xTF32 on the tensor cores)")
-    check(tf32 > 0, "flash_attention_f32's SASS holds no TF32 HMMA")
+    for name in ("flash_attention_f32", "flash_attention_wide"):
+        tf32 = sass_count(kernels, name, "HMMA", "TF32")
+        log(f"[build] {name} SASS: {tf32} HMMA lines with a TF32 type "
+            f"(3xTF32 on the tensor cores)")
+        check(tf32 > 0, f"{name}'s SASS holds no TF32 HMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -355,10 +403,12 @@ def phase_checkpoint_kernels_vs_plain(seed: int) -> dict:
     from repro_torch.kernels.chunk_router.ops import leaf_table, route_leaves
     from repro_torch.kernels.chunk_router.ref import (
         route_chunks_ref, route_chunks_segmented_ref)
-    from repro_torch.kernels.fletcher.fletcher import fletcher_chunks
+    from repro_torch.kernels.fletcher.fletcher import (fletcher_chunks,
+                                                       fletcher_segmented)
     from repro_torch.kernels.fletcher.ops import as_words
-    from repro_torch.kernels.fletcher.ref import fletcher_chunks_ref
-    err = {"fletcher": 0.0, "route_chunks": 0.0,
+    from repro_torch.kernels.fletcher.ref import (fletcher_chunks_ref,
+                                                  fletcher_segmented_ref)
+    err = {"fletcher": 0.0, "fletcher_segmented": 0.0, "route_chunks": 0.0,
            "route_chunks_segmented": 0.0}
     rng = np.random.RandomState(seed)
     dev = torch.device(DEVICE)
@@ -383,6 +433,37 @@ def phase_checkpoint_kernels_vs_plain(seed: int) -> dict:
             w[rng.randint(0, n, max(1, n // 50))] = -2 ** 31    # -0.0
             w[rng.randint(0, n, max(1, n // 50))] = 2 ** 31 - 1
         fl_case("edge", torch.as_tensor(w, device=dev), chunk)
+    def words(n):
+        w = rng.randint(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64).astype(
+            np.int32)
+        w[:n // 3] = -2 ** 31
+        return torch.as_tensor(w, device=dev)
+
+    # the segmented form: empty and one-word leaves, exact multiples of
+    # the chunk, bases 4, 8 and 12 bytes past 16-byte alignment, 3000
+    # leaves (three rounds of the leaf search)
+    for chunk in (CHUNK_WORDS, 1000, 1):
+        big = words(4 * chunk + 9)
+        leaves = [words(0), words(1), words(chunk), words(3 * chunk),
+                  big[1:], words(chunk + 17), big[2:chunk + 5], big[3:],
+                  words(0), words(7)]
+        cases = [(f"mixed leaves, chunks of {chunk}", leaves)]
+        if chunk == 1000:
+            cases.append(("3000 leaves, chunks of 1000",
+                          [words(int(n)) for n in
+                           rng.randint(0, 3000, 3000)]))
+        for label, leaves in cases:
+            got = fletcher_segmented(leaves, chunk)
+            torch.cuda.synchronize()
+            want = fletcher_segmented_ref(leaves, chunk)
+            e = max_abs_err(got, want)
+            err["fletcher_segmented"] = max(err["fletcher_segmented"], e)
+            check(torch.equal(got, want) and torch.equal(
+                got, torch.cat([fletcher_chunks(w, chunk) for w in leaves])),
+                f"fletcher_segmented {label} differs")
+            log(f"[kernels] fletcher_segmented {label}: {len(leaves)} "
+                f"leaves -> {tuple(got.shape)}: equal to the plain version "
+                f"and the per-leaf kernel (max_abs_err {e})")
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
     emb = embedding_leaf(gen)
     emb[0, :64] = -0.0
@@ -542,12 +623,57 @@ def attention_flops(B: int, S: int, H: int, D: int, causal: bool) -> float:
     return 4.0 * B * H * D * pairs
 
 
-def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
+def device_ops(fn) -> dict:
+    """The operations one call of ``fn`` puts on the card (kernels, copies,
+    memsets), by name, from ``torch.profiler``: the session that recorded
+    the most of three (one now and then records only part of them)."""
+    fn()
+    torch.cuda.synchronize()
+    best = {}
+    for _ in range(3):
+        ops = {e.key: e.count for e in profiled(fn, 1)}
+        if sum(ops.values()) > sum(best.values()):
+            best = ops
+    return best
+
+
+_HIST_OTHER = {}
+
+
+def histogram_path(dest: torch.Tensor, n_bins: int, path: str
+                   ) -> torch.Tensor:
+    """``dest_histogram``'s kernel with its path forced: "cluster" (one
+    thread-block cluster, one launch) or "grid" (the earlier design: a
+    memset, then up to two blocks an SM), through the kernel's own
+    launch; or "other": the cluster path of the library built with
+    ``HIST_OTHER_SHAPE``."""
+    from repro_torch.kernels.chunk_router.chunk_router import DEST_HISTOGRAM
+    counts = torch.empty(n_bins, dtype=torch.int32, device=dest.device)
+    args = (dest.data_ptr(), counts.data_ptr(), dest.numel(), n_bins,
+            -1 if path == "grid" else 2 ** 62)
+    if path != "other":
+        DEST_HISTOGRAM.launch(*args)
+        return counts
+    fn = _HIST_OTHER.get("fn")
+    if fn is None:
+        fn = _HIST_OTHER["fn"] = ctypes.CDLL(
+            str(hist_other_library())).dest_histogram
+        fn.argtypes = DEST_HISTOGRAM.argtypes
+        fn.restype = ctypes.c_int
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"dest_histogram with {HIST_OTHER_SHAPE}: CUDA error "
+                    f"{err}")
+    return counts
+
+
+def phase_last_kernels(seed: int, counters, f32_counter,
+                       wide_counter) -> dict:
     """This slice's path: ``flash_attention`` and ``histogram_rows`` at the
     shapes the port's paths give them, then checks and times.
     ``counters`` are the bf16 attention and histogram kernels' (the main
     path), ``f32_counter`` the float32 attention kernel's (the float32
-    calls at the same shape)."""
+    calls at the same shape), ``wide_counter`` the wide float32 kernel's
+    (the calls at head dims above 256)."""
     import torch.nn.functional as F
     from repro_torch.configs import all_configs
     from repro_torch.kernels.chunk_router.ops import histogram_rows
@@ -804,6 +930,42 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
     check(f32_counter.launches == before + 2,
           "float16 did not run the float32 kernel")
 
+    # head dims above 256: the wide float32 kernel (bf16 computed in
+    # float32 and rounded once), with its count zeroed just before
+    wide_counter.launches = 0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for d in (320, 512, 640):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                x = [rand((2, 200, 3, d), dtype) for _ in range(3)]
+                got = flash_attention(*x, causal=causal)
+                check(got.shape == x[0].shape and got.dtype == dtype,
+                      f"wide head dim {d} {dtype}: wrong shape or dtype")
+                worst[dtype] = max(worst[dtype], close(
+                    f"wide head dim {d} {dtype} causal={causal}", got,
+                    flash_attention_ref(*x, scale=d ** -0.5, causal=causal),
+                    ATTN_TOL[dtype], quiet=True))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    wide = [torch.randn((B, S, H, 512), device=dev, generator=gen)
+            for _ in range(3)]
+    worst[torch.float32] = max(worst[torch.float32], close(
+        f"wide float32 causal {(B, S, H, 512)}",
+        flash_attention(*wide, causal=True),
+        flash_attention_ref(*wide, scale=512 ** -0.5, causal=True),
+        ATTN_TOL[torch.float32]))
+    torch.cuda.synchronize()
+    launches[wide_counter.name] = wide_counter.launches
+    check(wide_counter.launches == 13,
+          f"{wide_counter.name}: {wide_counter.launches} launches for 13 "
+          f"calls above head dim 256")
+    err[wide_counter.name] = worst[torch.float32]
+    log(f"[last] flash_attention head dims 320/512/640 x f32/bf16 x "
+        f"causal/full "
+        f"and (4, 1024, 4, 512) float32 causal through the wide kernel: "
+        f"within tolerance (max_abs_err float32 {worst[torch.float32]}, "
+        f"bf16 {worst[torch.bfloat16]}); launches "
+        f"{{{wide_counter.name!r}: {wide_counter.launches}}}")
+
     def hist_case(label, d, n_bins):
         got = histogram_rows(d, n_bins=n_bins)
         torch.cuda.synchronize()
@@ -822,35 +984,66 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
         rng.randint(-1, 20002, 100000).astype(np.int32), device=dev), 20000)
     hist_case("all sentinel", torch.full((5000,), -1, dtype=torch.int32,
                                          device=dev), 33)
-    log("[last] dest_histogram sweep n 0/8/100/1024/4097 x bins 4/33, "
-        "4096 -> 64, 100000 -> 20000, all sentinel: equal")
+    # 16 M values into the save's 32 bins, sentinel-free like the save's
+    # destinations (bincount, timed beside it, takes no negative value)
+    large = torch.as_tensor(rng.randint(0, N_NODES, 1 << 24).astype(
+        np.int32), device=dev)
+    hist_case("large", large, N_NODES)
+    # both of the kernel's paths, forced, on the sweep and the main shapes
+    n_paths = 0
+    for d, nb in ([(torch.as_tensor(rng.randint(-1, nb + 2, n).astype(
+            np.int32), device=dev), nb) for n in (8, 100, 1024, 4097)
+                   for nb in (4, 33)] +
+                  [(dest, N_NODES), (large, N_NODES), (micro, 64)]):
+        want = dest_histogram_ref(d, n_bins=nb)
+        for path in ("cluster", "grid", "other"):
+            got = histogram_path(d, nb, path)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"dest_histogram {path} path "
+                                          f"n={d.numel()} n_bins={nb} "
+                                          f"differs")
+            n_paths += 1
+    log(f"[last] dest_histogram sweep n 0/8/100/1024/4097 x bins 4/33, "
+        f"4096 -> 64, 100000 -> 20000, all sentinel, the save's "
+        f"{dest.numel()} destinations, {large.numel()} values -> {N_NODES} "
+        f"bins: equal; both paths and the cluster path with "
+        f"{HIST_OTHER_SHAPE} forced ({n_paths} cases): equal")
 
     # times (card and power limit printed at the end): kernel and SDPA in
     # turns, best of each, as device time (the profiler's sum of kernel
     # times: back to back, the wrapper's host work, not the card, would
     # set the pace of a 0.03 ms kernel; that rate is logged apart)
-    def turns(kernel, library, reps):
+    # three turns each, the median kept (not the best of two): a
+    # profiler session that records only part of a call's device work
+    # reads low; one below the bound is taken again (device_ms), and one
+    # low session above it must not decide the figure.  ``floor`` bounds
+    # the kernel's work, ``lib_floor`` the library's
+    def turns(kernel, library, reps, floor, lib_floor):
         ks, ls = [], []
-        for _ in range(2):
-            ks.append(device_ms(kernel, reps))
-            ls.append(device_ms(library, reps))
-        return min(ks), min(ls), ks, ls
+        for _ in range(3):
+            ks.append(device_ms(kernel, reps, floor))
+            ls.append(device_ms(library, reps, lib_floor))
+        return median(ks), median(ls), ks, ls
+
+    def in_turns(ks, ls):
+        return ", ".join(f"kernel {k:.5f}, SDPA {v:.5f}"
+                         for k, v in zip(ks, ls)) + " ms"
 
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     nbytes = 4 * q.numel() * q.element_size()
     for causal in (True, False):
+        b, by = bound_ms(nbytes, attention_flops(B, S, H, D, causal),
+                         BF16_TENSOR_OPS_PER_S)
         t_k, t_l, ks, ls = turns(
             lambda: flash_attention(q, k, v, causal=causal),
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=causal), 50)
+                                                   is_causal=causal), 50,
+            b, b)
         t_p = cuda_ms(lambda: flash_attention_ref(q, k, v, scale=scale,
                                                   causal=causal), 5)
-        b, by = bound_ms(nbytes, attention_flops(B, S, H, D, causal),
-                         BF16_TENSOR_OPS_PER_S)
         mode = "causal" if causal else "full"
         log(f"[time] flash_attention bf16 {mode} {(B, S, H, D)}, device "
-            f"time in turns: kernel {ks[0]:.5f}, SDPA {ls[0]:.5f}, kernel "
-            f"{ks[1]:.5f}, SDPA {ls[1]:.5f} ms")
+            f"time in turns: {in_turns(ks, ls)}")
         times[f"flash_attention {mode}"] = dict(
             ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
             shape=f"{(B, S, H, D)} bf16 {mode}, device time, bound at the "
@@ -867,19 +1060,21 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
     f32t = [a.transpose(1, 2) for a in f32]
     for causal in (True, False):
         mode = "causal" if causal else "full"
-        t32, t32l, ks, ls = turns(
-            lambda: flash_attention(*f32, causal=causal),
-            lambda: F.scaled_dot_product_attention(*f32t, is_causal=causal),
-            20)
-        t32p = cuda_ms(lambda: flash_attention_ref(*f32, scale=scale,
-                                                   causal=causal), 5)
         flops = attention_flops(B, S, H, D, causal)
         b32, by32 = bound_ms(4 * f32[0].numel() * 4, 3 * flops,
                              TF32_TENSOR_OPS_PER_S)
         simt, _ = bound_ms(4 * f32[0].numel() * 4, flops)
+        # SDPA's floor: the work once at the TF32 peak, whatever it runs
+        one, _ = bound_ms(4 * f32[0].numel() * 4, flops,
+                          TF32_TENSOR_OPS_PER_S)
+        t32, t32l, ks, ls = turns(
+            lambda: flash_attention(*f32, causal=causal),
+            lambda: F.scaled_dot_product_attention(*f32t, is_causal=causal),
+            20, b32, one)
+        t32p = cuda_ms(lambda: flash_attention_ref(*f32, scale=scale,
+                                                   causal=causal), 5)
         log(f"[time] flash_attention float32 {mode} {(B, S, H, D)}, device "
-            f"time in turns: kernel {ks[0]:.5f}, SDPA {ls[0]:.5f}, kernel "
-            f"{ks[1]:.5f}, SDPA {ls[1]:.5f} ms; bound {b32:.5f} ms (3xTF32 "
+            f"time in turns: {in_turns(ks, ls)}; bound {b32:.5f} ms (3xTF32 "
             f"at the TF32 peak, {by32}), {b32 / t32:.3f} of it; float32 "
             f"SIMT bound {simt:.5f} ms")
         times[f"{f32_counter.name} {mode}"] = dict(
@@ -892,22 +1087,84 @@ def phase_last_kernels(seed: int, counters, f32_counter) -> dict:
     times[f32_counter.name] = times.pop(f"{f32_counter.name} causal")
     del f32, f32t
 
+    # the wide kernel at (4, 1024, 4, 512) float32 causal, SDPA in turns
+    widet = [a.transpose(1, 2) for a in wide]
+    bw, byw = bound_ms(4 * wide[0].numel() * 4,
+                       3 * attention_flops(B, S, H, 512, True),
+                       TF32_TENSOR_OPS_PER_S)
+    one, _ = bound_ms(4 * wide[0].numel() * 4,
+                      attention_flops(B, S, H, 512, True),
+                      TF32_TENSOR_OPS_PER_S)
+    tw, twl, ks, ls = turns(
+        lambda: flash_attention(*wide, causal=True),
+        lambda: F.scaled_dot_product_attention(*widet, is_causal=True), 10,
+        bw, one)
+    twp = cuda_ms(lambda: flash_attention_ref(*wide, scale=512 ** -0.5,
+                                              causal=True), 5)
+    log(f"[time] {wide_counter.name} float32 causal {(B, S, H, 512)}, "
+        f"device time in turns: {in_turns(ks, ls)}")
+    times[wide_counter.name] = dict(
+        ms=tw, plain_ms=twp, library_ms=twl, bound_ms=bw, bound_by=byw,
+        shape=f"{(B, S, H, 512)} float32 causal, device time, bound: "
+              f"3xTF32 at the TF32 tensor-core peak; library: "
+              f"scaled_dot_product_attention")
+    del wide, widet
+
+    # the histogram: the one-cluster path (what the entry point takes at
+    # the save's shape) against the grid path (the earlier design) and
+    # bincount, from the save's destinations to 16 M values, device time;
+    # the operations a call puts on the card
     nb = N_NODES
-    t_k = device_ms(lambda: histogram_rows(dest, n_bins=nb), 50)
-    t_p = device_ms(lambda: dest_histogram_ref(dest, n_bins=nb), 50)
-    t_l = device_ms(lambda: torch.bincount(dest, minlength=nb), 50)
+    ops = device_ops(lambda: histogram_rows(dest, n_bins=nb))
+    grid_ops = device_ops(lambda: histogram_path(dest, nb, "grid"))
+    lib_ops = device_ops(lambda: torch.bincount(dest, minlength=nb))
+    log(f"[time] dest_histogram at the save's shape: device operations a "
+        f"call {ops}; grid path {grid_ops}; bincount {lib_ops}")
+    check(sum(ops.values()) == 1,
+          f"dest_histogram at the save's shape: {ops} on the card, not one "
+          f"launch")
+    n = dest.numel()
+    b, by = bound_ms(n * 4 + nb * 4, n)
+    t_p = device_ms(lambda: dest_histogram_ref(dest, n_bins=nb), 50, b)
+    # "other": the cluster path in HIST_OTHER_SHAPE, against the shipped
+    # shape ("cluster") in the same turns
+    sweep = {}
+    for d in (dest, large[:1 << 16], large[:1 << 17], large[:1 << 18],
+              large[:1 << 20], large[:1 << 22], large):
+        floor, _ = bound_ms(d.numel() * 4 + nb * 4, d.numel())
+        row = {}
+        for rep in range(3):
+            for name, fn in (
+                    ("entry", lambda: histogram_rows(d, n_bins=nb)),
+                    ("cluster", lambda: histogram_path(d, nb, "cluster")),
+                    ("other", lambda: histogram_path(d, nb, "other")),
+                    ("grid", lambda: histogram_path(d, nb, "grid")),
+                    ("bincount", lambda: torch.bincount(d, minlength=nb))):
+                row.setdefault(name, []).append(device_ms(fn, 50, floor))
+        sweep[d.numel()] = {k: median(v) for k, v in row.items()}
+        log(f"[time] dest_histogram n {d.numel()} -> {nb} bins, device ms "
+            f"(three turns each, the median kept; other: "
+            f"{HIST_OTHER_SHAPE}): " + ", ".join(
+                f"{k} " + "/".join(f"{t:.5f}" for t in v)
+                for k, v in row.items()))
+    host = cuda_ms(lambda: histogram_rows(dest, n_bins=nb), 200)
     log(f"[time] dest_histogram back to back through the entry point: "
-        f"{cuda_ms(lambda: histogram_rows(dest, n_bins=nb), 200):.4f} ms a "
-        f"call (host launch rate); microbench 4096 -> 64: "
+        f"{host:.4f} ms a call (host launch rate); microbench 4096 -> 64: "
         f"{device_ms(lambda: histogram_rows(micro, n_bins=64), 50):.5f} ms "
         f"device")
-    b, by = bound_ms(dest.numel() * 4 + nb * 4, dest.numel())
+    bl, _ = bound_ms(large.numel() * 4 + nb * 4, large.numel())
     times["dest_histogram"] = dict(
-        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
-        shape=f"{dest.numel()} save destinations -> {nb} bins, device time; "
+        ms=sweep[n]["entry"], plain_ms=t_p, library_ms=sweep[n]["bincount"],
+        bound_ms=b, bound_by=by, pr16_ms=sweep[n]["grid"],
+        cluster_ms=sweep[n]["cluster"], host_ms=host,
+        large=dict(sweep[large.numel()], bound_ms=bl),
+        sweep={str(k): v for k, v in sweep.items()},
+        shape=f"{n} save destinations -> {nb} bins, device time; "
               f"library: bincount on this sentinel-free input")
+    del large
     for name in ("flash_attention", "flash_attention full", f32_counter.name,
-                 f"{f32_counter.name} full", "dest_histogram"):
+                 f"{f32_counter.name} full", wide_counter.name,
+                 "dest_histogram"):
         r = times[name]
         log(f"[time] {name} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms, "
@@ -1063,24 +1320,85 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call: the summed time of every kernel and copy that
-    ``reps`` calls of ``fn`` put on the card, from ``torch.profiler``,
-    divided by ``reps``.  Unlike events around back-to-back calls it leaves
-    out the gaps in which the card waits for the host to launch."""
+def profiled(fn, reps: int) -> list:
+    """``reps`` calls of ``fn`` in one ``torch.profiler`` session, to the
+    end of their device work: the session's device events (kernels,
+    copies, memsets), aggregated by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
-    check(busy > 0, "profiler recorded no device time")
-    return busy / reps
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def queued_span_ms(fn, reps: int) -> float:
+    """Device span per call of ``reps`` calls of ``fn``, by CUDA events,
+    with every call queued behind a sleep on the card so that the host's
+    launch gaps fall inside the sleep: the kernels' times and the card's
+    own gaps between them.  A call that waits for the card (``bincount``
+    does) brings its host time back in.  It cannot read less than the
+    work took."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6) * reps)        # about 1 ms a call queued
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def per_call(events, reps: int):
+    """What one call of ``fn`` put on the card, from a session of ``reps``
+    calls: its mix of operations (name → times a call, the session's count
+    over ``reps`` rounded) and its device time in ms (each operation's mean
+    time × its times a call), so that a few records the session lost do
+    not lower the time."""
+    mix = {e.key: round(e.count / reps) for e in events
+           if round(e.count / reps)}
+    return mix, sum(e.self_device_time_total / e.count * mix[e.key]
+                    for e in events if e.key in mix) / 1e3
+
+
+def device_ms(fn, reps: int, floor_ms: float = 0.0) -> float:
+    """Device time per call: the time of every kernel and copy that a call
+    of ``fn`` puts on the card, from ``torch.profiler`` sessions of
+    ``reps`` calls (``per_call``).  Unlike events around back-to-back
+    calls it leaves out the gaps in which the card waits for the host to
+    launch.
+
+    A profiler session now and then records none or only part of the
+    device work (about one session in 70 on the H100, once three in a
+    row; after training, every session lost 6 of its records).  So a
+    reading is kept only where two sessions agree on the largest mix of
+    operations any session recorded and each reads at least ``floor_ms``
+    (the work's bound, which no call beats); their mean is kept.  After
+    six sessions without that, the figure is ``queued_span_ms`` instead,
+    which no lost record can lower; a span below ``floor_ms`` fails the
+    run."""
+    fn()
+    torch.cuda.synchronize()
+    seen = []                                  # (mix, ms a call)
+    for _ in range(6):
+        seen.append(per_call(profiled(fn, reps), reps))
+        most = max(seen, key=lambda s: sum(s[0].values()))[0]
+        whole = [t for mix, t in seen if mix == most and t >= floor_ms]
+        if most and len(whole) >= 2:
+            return sum(whole[:2]) / 2
+    span = queued_span_ms(fn, reps)
+    log(f"[time] profiler sessions (operations a call, ms a call) "
+        f"{[(sum(m.values()), t) for m, t in seen]} never agreed; device "
+        f"span by events instead: {span:.6f} ms a call")
+    check(span >= floor_ms, f"device span {span} ms a call is below the "
+                            f"work's bound {floor_ms} ms")
+    return span
 
 
 def host_ms(fn, reps: int) -> float:
@@ -1120,13 +1438,14 @@ def phase_timings(seed: int, deploy: dict) -> dict:
                        L * nb).reshape(-1)
     # launch-bound: device time per call, plus what back-to-back calls
     # through the wrapper sustain (the host's launch rate)
-    t_k = device_ms(lambda: dest_histogram2d(hist_in, n_bins=nb), 50)
-    t_p = device_ms(lambda: dest_histogram2d_ref(hist_in, n_bins=nb), 50)
-    t_l = device_ms(lambda: torch.bincount(flat, minlength=L * nb + 1), 50)
+    b, by = bound_ms(L * q * 4 + L * nb * 4, L * q)
+    t_k = device_ms(lambda: dest_histogram2d(hist_in, n_bins=nb), 50, b)
+    t_p = device_ms(lambda: dest_histogram2d_ref(hist_in, n_bins=nb), 50, b)
+    t_l = device_ms(lambda: torch.bincount(flat, minlength=L * nb + 1), 50,
+                    b)
     log(f"[time] dest_histogram2d back to back through the wrapper: "
         f"{cuda_ms(lambda: dest_histogram2d(hist_in, n_bins=nb), 200):.4f} "
         f"ms a call (host launch rate)")
-    b, by = bound_ms(L * q * 4 + L * nb * 4, L * q)
     out["dest_histogram2d"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                    bound_ms=b, bound_by=by,
                                    shape=f"({L}, {q}) -> ({L}, {nb})")
@@ -1218,20 +1537,25 @@ def profile_call(name: str, fn) -> None:
     the wall time, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    # a session that recorded no device time is taken again, twice at most
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        if busy > 0:
+            break
     launches = sum(e.count for e in events if "LaunchKernel" in e.key)
     syncs = sum(e.count for e in events if e.key == "aten::nonzero" or
                 "Synchronize" in e.key)
-    check(busy > 0, f"profile of {name}: no device time recorded")
+    check(busy > 0, f"profile of {name}: no device time recorded in three "
+                    f"sessions")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     log(f"[profile] {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
         f"idle share {max(0.0, 1 - busy / wall):.3f}, {launches} kernel "
@@ -1252,11 +1576,16 @@ def mem_available_gib() -> float:
     return float("nan")
 
 
-def phase_train(seed: int, counters, route_counter) -> dict:
+def phase_train(seed: int, counters, route_counter, checksum_counter,
+                per_leaf_counter) -> dict:
     """``counters``: the checkpoint kernels' launch counts; each must be
-    above 0 after the run, and ``route_counter`` (the segmented routing)
-    must read one launch per save and one per restore."""
-    from repro_torch.checkpoint.manager import CheckpointManager
+    above 0 after the run, ``route_counter`` (the segmented routing) must
+    read one launch per save and one per restore, ``checksum_counter``
+    (the segmented checksum) one per save and between one and
+    ``ceil(state / VERIFY_GROUP_BYTES)`` per restore, and
+    ``per_leaf_counter`` (the per-leaf checksum) none."""
+    from repro_torch.checkpoint.manager import (VERIFY_GROUP_BYTES,
+                                                CheckpointManager)
     from repro_torch.configs import all_configs
     from repro_torch.models.registry import build_model
     from repro_torch.train.failure import FailurePlan
@@ -1285,7 +1614,7 @@ def phase_train(seed: int, counters, route_counter) -> dict:
         return method
 
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
+    for c in counters + (per_leaf_counter,):
         c.launches = 0
     t0 = time.perf_counter()
     try:
@@ -1305,9 +1634,24 @@ def phase_train(seed: int, counters, route_counter) -> dict:
     check(launches[route_counter.name] == calls["save"] + calls["restore"],
           f"{route_counter.name}: {launches[route_counter.name]} launches "
           f"for {calls['save']} saves and {calls['restore']} restores")
+    # f32 params and two f32 moments: 12 bytes a param, in groups of at
+    # least VERIFY_GROUP_BYTES but the last
+    groups = 12 * n_params // VERIFY_GROUP_BYTES + 1
+    n_sum = launches[checksum_counter.name]
+    check(calls["save"] + calls["restore"] <= n_sum <=
+          calls["save"] + groups * calls["restore"],
+          f"{checksum_counter.name}: {n_sum} launches for {calls['save']} "
+          f"saves and {calls['restore']} restores")
+    check(per_leaf_counter.launches == 0,
+          f"{per_leaf_counter.name} launched {per_leaf_counter.launches} "
+          f"times on the training path")
     log(f"[train] {calls['save']} saves and {calls['restore']} restores "
         f"(one failing its checksum), {launches[route_counter.name]} "
-        f"routing launches: one a save and one a restore")
+        f"routing launches: one a save and one a restore; "
+        f"{n_sum} {checksum_counter.name} launches: one a save, one per "
+        f"group of leaves of at least {VERIFY_GROUP_BYTES} bytes a restore "
+        f"(a per-leaf fletcher launch a leaf would make 1005); "
+        f"{per_leaf_counter.name}: {per_leaf_counter.launches}")
     got = dataclasses.asdict(res.failure_log)
     log(f"[train] FailureLog {got}, final step {res.final_step}, "
         f"{len(res.losses)} steps kept, in {wall:.2f} s")
@@ -1340,9 +1684,12 @@ def phase_checkpoint_times(train: dict) -> dict:
     from repro_torch.kernels.chunk_router.ops import leaf_table
     from repro_torch.kernels.chunk_router.ref import \
         route_chunks_segmented_ref
-    from repro_torch.kernels.fletcher.fletcher import fletcher_chunks
+    from repro_torch.kernels.fletcher.fletcher import (FLETCHER_SEGMENTED,
+                                                       fletcher_chunks,
+                                                       fletcher_segmented)
     from repro_torch.kernels.fletcher.ops import as_words
     from repro_torch.kernels.fletcher.ref import (fletcher_chunks_ref,
+                                                  fletcher_segmented_ref,
                                                   n_chunks_of)
     out = {}
     state = train["result"].state
@@ -1361,10 +1708,12 @@ def phase_checkpoint_times(train: dict) -> dict:
         t_block = time.perf_counter() - t0
         mgr.wait()
         t_total = time.perf_counter() - t0
+        FLETCHER_SEGMENTED.launches = 0
         t0 = time.perf_counter()
         restored, step = mgr.restore(TRAIN_STEPS, state)
         torch.cuda.synchronize()
         t_restore = time.perf_counter() - t0
+        restore_launches = FLETCHER_SEGMENTED.launches
         check(step == TRAIN_STEPS, f"restored step {step}")
         for (k, a), (_, b) in zip(flatten_state(restored), leaves):
             check(a.device == b.device and a.dtype == b.dtype and
@@ -1373,7 +1722,34 @@ def phase_checkpoint_times(train: dict) -> dict:
             check(torch.equal(a.reshape(-1).view(torch.uint8),
                               b.reshape(-1).view(torch.uint8)),
                   f"restored leaf {k} differs from the saved one")
-        del restored, mgr
+        del restored
+        # a corrupt chunk in the middle leaf: the restore stops at most
+        # one group of leaves past it
+        bad_key = leaves[len(leaves) // 2][0]
+        path = f"{mgr.scope}/{TRAIN_STEPS}/{bad_key}"
+        node = next(n for n in mgr.store.nodes if (str_hash(path), 0) in n)
+        good = node[(str_hash(path), 0)]
+        node[(str_hash(path), 0)] = bytes([good[0] ^ 1]) + good[1:]
+        FLETCHER_SEGMENTED.launches = 0
+        failures = mgr.verify_failures
+        t0 = time.perf_counter()
+        try:
+            mgr.restore(TRAIN_STEPS, state)
+            rejected = None
+        except IOError as e:
+            rejected = str(e)
+        torch.cuda.synchronize()
+        t_reject = time.perf_counter() - t0
+        check(rejected == f"checksum mismatch {bad_key}#0" and
+              mgr.verify_failures == failures + 1,
+              f"the corrupt restore gave {rejected!r}")
+        reject_launches = FLETCHER_SEGMENTED.launches
+        del mgr
+    log(f"[ckpt] restore: {restore_launches} {FLETCHER_SEGMENTED.name} "
+        f"launches (groups of whole leaves of at least 1 GiB); a corrupt "
+        f"chunk in leaf {len(leaves) // 2} of {len(leaves)} ({bad_key}) was "
+        f"rejected in {t_reject * 1e3:.1f} ms after {reject_launches} "
+        f"launches: {rejected!r}")
     log(f"[ckpt] save of the full state: {t_block * 1e3:.1f} ms blocks the "
         f"loop (checksums and routing on the card, device-to-host copy), "
         f"{(t_total - t_block) * 1e3:.1f} ms more on the save thread "
@@ -1382,29 +1758,56 @@ def phase_checkpoint_times(train: dict) -> dict:
         f"restored state equals the saved one bit for bit")
     out["save"] = dict(block_ms=t_block * 1e3,
                        async_ms=(t_total - t_block) * 1e3,
-                       restore_ms=t_restore * 1e3, nbytes=nbytes,
+                       restore_ms=t_restore * 1e3, reject_ms=t_reject * 1e3,
+                       restore_launches=restore_launches,
+                       reject_launches=reject_launches, nbytes=nbytes,
                        n_chunks=n_chunks, n_leaves=len(leaves))
 
-    # fletcher: every leaf of one save, one launch each (CUDA events)
+    # fletcher_segmented: every chunk of one save in one launch, bit for
+    # bit against its plain version and the per-leaf kernel; its time (CUDA
+    # events) beside a per-leaf launch for each leaf, in turns
     words = [as_words(t) for _, t in leaves]
-    per_save = cuda_ms(lambda: [fletcher_chunks(w, CHUNK_WORDS)
-                                for w in words], 3)
-    b_save, _ = bound_ms(sum(w.numel() * 4 for w in words) + n_chunks * 8,
-                         0)
-    log(f"[time] fletcher per save: {per_save:.3f} ms for {len(words)} "
-        f"launches over {nbytes / 1e9:.3f} GB, bound {b_save:.3f} ms "
-        f"(bytes), {b_save / per_save:.3f} of bound")
+    got = fletcher_segmented(words, CHUNK_WORDS)
+    per_leaf = torch.cat([fletcher_chunks(w, CHUNK_WORDS) for w in words])
+    torch.cuda.synchronize()
+    want = fletcher_segmented_ref(words, CHUNK_WORDS)
+    e_seg = max_abs_err(got, want)
+    check(got.shape == (n_chunks, 2) and torch.equal(got, want) and
+          torch.equal(got, per_leaf),
+          "fletcher_segmented over one save differs")
+    log(f"[ckpt] fletcher_segmented over one save ({len(words)} leaves, "
+        f"{n_chunks} chunks): equal to its plain version and to the "
+        f"{len(words)} per-leaf fletcher results (max_abs_err {e_seg})")
+    del got, per_leaf, want
+    seg, loop = [], []
+    for _ in range(2):
+        seg.append(cuda_ms(lambda: fletcher_segmented(words, CHUNK_WORDS),
+                           10))
+        loop.append(cuda_ms(lambda: [fletcher_chunks(w, CHUNK_WORDS)
+                                     for w in words], 3))
+    t_sp = cuda_ms(lambda: fletcher_segmented_ref(words, CHUNK_WORDS), 1,
+                   warmup=1)
+    b_save, by_save = bound_ms(sum(w.numel() * 4 for w in words) +
+                               n_chunks * 8, 0)
+    log(f"[time] fletcher per save, in turns: one fletcher_segmented "
+        f"launch {seg[0]:.4f} / {seg[1]:.4f} ms, {len(words)} per-leaf "
+        f"fletcher calls {loop[0]:.4f} / {loop[1]:.4f} ms (CUDA events); "
+        f"bound {b_save:.4f} ms (bytes), {b_save / min(seg):.3f} of it")
     emb = as_words(dict(leaves)["[0]/['embed']/['embedding']"])
     nc = n_chunks_of(emb.numel(), CHUNK_WORDS)
     t_k = cuda_ms(lambda: fletcher_chunks(emb, CHUNK_WORDS), 10)
-    t_p = cuda_ms(lambda: fletcher_chunks_ref(emb, CHUNK_WORDS), 2,
-                  warmup=1)
-    b, by = bound_ms(emb.numel() * 4 + nc * 8, emb.numel() * 8)
-    out["fletcher"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
-                           bound_ms=b, bound_by=by, per_save_ms=per_save,
-                           per_save_bound_ms=b_save,
-                           shape=f"embedding leaf: {emb.numel()} words, "
-                                 f"{nc} chunks")
+    t_ks = cuda_ms(lambda: fletcher_segmented([emb], CHUNK_WORDS), 10)
+    b, _ = bound_ms(emb.numel() * 4 + nc * 8, 0)
+    log(f"[time] fletcher on the embedding leaf ({emb.numel()} words, "
+        f"{nc} chunks): per-leaf kernel {t_k:.4f} ms, segmented "
+        f"{t_ks:.4f} ms, bound {b:.4f} ms")
+    out["fletcher_segmented"] = dict(
+        ms=min(seg), plain_ms=t_sp, library_ms=None, bound_ms=b_save,
+        bound_by=by_save, per_leaf_ms=min(loop),
+        embedding_ms=t_k, embedding_segmented_ms=t_ks, embedding_bound_ms=b,
+        err=e_seg,
+        shape=f"one save: {len(words)} leaves, {n_chunks} chunks, "
+              f"{nbytes / 1e9:.3f} GB")
     del words, emb
     torch.cuda.empty_cache()
 
@@ -1424,16 +1827,17 @@ def phase_checkpoint_times(train: dict) -> dict:
                                 counts)
     lt = torch.as_tensor(table, device=DEVICE)
     n = int(offsets[-1])
-    t_k = device_ms(lambda: route_chunks_segmented(lt, n, n_nodes=nodes), 50)
-    t_p = device_ms(lambda: route_chunks_segmented_ref(lt, n, n_nodes=nodes),
-                    50)
     # a binary search over the leaves and the hash, ~16 integer ops a chunk
     b, by = bound_ms(lt.numel() * 4 + n * 4, n * 16)
+    t_k = device_ms(lambda: route_chunks_segmented(lt, n, n_nodes=nodes), 50,
+                    b)
+    t_p = device_ms(lambda: route_chunks_segmented_ref(lt, n, n_nodes=nodes),
+                    50, b)
     out["route_chunks_segmented"] = dict(
         ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b, bound_by=by,
         host_ms_per_save=route_host,
         shape=f"one save: {len(table)} leaves, {n} chunks, {nodes} nodes")
-    for name in ("fletcher", "route_chunks_segmented"):
+    for name in ("fletcher_segmented", "route_chunks_segmented"):
         r = out[name]
         log(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
@@ -1484,11 +1888,12 @@ def main() -> int:
     from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS
     from repro_torch.kernels.chunk_router.chunk_router import (
         DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS_SEGMENTED)
-    from repro_torch.kernels.fletcher.fletcher import FLETCHER
+    from repro_torch.kernels.fletcher.fletcher import (FLETCHER,
+                                                       FLETCHER_SEGMENTED)
     from repro_torch.kernels.flash_attention.flash_attention import (
-        FLASH_ATTENTION, FLASH_ATTENTION_F32)
+        FLASH_ATTENTION, FLASH_ATTENTION_F32, FLASH_ATTENTION_WIDE)
     counters = (DEST_HISTOGRAM2D, PACK_CHUNKS)
-    ckpt_counters = (FLETCHER, ROUTE_CHUNKS_SEGMENTED)
+    ckpt_counters = (FLETCHER_SEGMENTED, ROUTE_CHUNKS_SEGMENTED)
     last_counters = (FLASH_ATTENTION, DEST_HISTOGRAM)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1500,7 +1905,7 @@ def main() -> int:
         err.update(phase_checkpoint_kernels_vs_plain(args.seed))
         phase = "last kernels"
         last = phase_last_kernels(args.seed, last_counters,
-                                  FLASH_ATTENTION_F32)
+                                  FLASH_ATTENTION_F32, FLASH_ATTENTION_WIDE)
         err.update(last["err"])
         torch.cuda.empty_cache()
         phase = "deployment"
@@ -1516,10 +1921,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "train"
         train = phase_train(args.seed, ckpt_counters,
-                            ROUTE_CHUNKS_SEGMENTED)
+                            ROUTE_CHUNKS_SEGMENTED, FLETCHER_SEGMENTED,
+                            FLETCHER)
         launches.update(train["launches"])
         phase = "checkpoint times"
         times.update(phase_checkpoint_times(train))
+        err["fletcher_segmented"] = max(err["fletcher_segmented"],
+                                        times["fletcher_segmented"]["err"])
         phase = "step times"
         times["step"] = phase_step_times(args.seed, train)
         smi = subprocess.run(
@@ -1537,7 +1945,7 @@ def main() -> int:
              "src/repro/kernels/chunk_router/chunk_router.py:133"),
             (PACK_CHUNKS, "src/repro_torch/csrc/pack_chunks.cu",
              "src/repro/kernels/chunk_pack/chunk_pack.py:42"),
-            (FLETCHER, "src/repro_torch/csrc/fletcher.cu",
+            (FLETCHER_SEGMENTED, "src/repro_torch/csrc/fletcher.cu",
              "src/repro/kernels/fletcher/fletcher.py:39"),
             (ROUTE_CHUNKS_SEGMENTED, "src/repro_torch/csrc/route_chunks.cu",
              "src/repro/kernels/chunk_router/chunk_router.py:68"),
@@ -1547,8 +1955,15 @@ def main() -> int:
              "src/repro/kernels/flash_attention/flash_attention.py:72"),
             (FLASH_ATTENTION_F32,
              "src/repro_torch/csrc/flash_attention_f32.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:72"),
+            (FLASH_ATTENTION_WIDE,
+             "src/repro_torch/csrc/flash_attention_wide.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:72")):
         t = times[c.name]
+        if not t["ms"] >= t["bound_ms"]:
+            print(f"chip_smoke: {c.name} read {t['ms']} ms, below its bound "
+                  f"{t['bound_ms']} ms: a partial reading", file=sys.stderr)
+            return 1
         rows.append({"name": c.name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches[c.name],

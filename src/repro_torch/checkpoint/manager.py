@@ -8,13 +8,17 @@ the async save and ``set_policy`` are the reference's, and a state saved
 here stores the same chunks at the same nodes with the same manifest as the
 JAX manager given the same leaves.
 
-What moves to the card: on save, each leaf's chunks are checksummed by one
-``fletcher`` launch, and the chunks of all leaves are routed by one
+What moves to the card: on save, the chunks of all leaves are checksummed
+by one ``fletcher_segmented`` launch and routed by one
 ``route_chunks_segmented`` launch, before the device-to-host copy; on
 restore, the chunks of all leaves are routed by one launch, then each
-leaf's chunks go to the card in one copy, are checked there by one
-``fletcher`` launch, and that tensor becomes the restored leaf.  For a
-state on the CPU the same calls run the kernels' plain versions.
+leaf's chunks go to the card in one copy, which becomes the restored leaf,
+and the leaves are checked there in groups of at least
+``VERIFY_GROUP_BYTES``, one ``fletcher_segmented`` launch a group.  A
+group's result is read back only once the next group's copies are queued,
+so the host assembles leaves while the card checks, and a corrupt restore
+stops at most one group past the bad chunk.  For a state on the CPU the
+same calls run the kernels' plain versions.
 
 A state is a nested structure of tensors — dicts, tuples and NamedTuples,
 like the JAX train state ``(params, AdamWState(step, mu, nu), cursor)`` —
@@ -40,10 +44,12 @@ from repro_torch import resolve_device
 from repro_torch.core.layouts import str_hash
 from repro_torch.core.policy import as_policy
 from repro_torch.kernels.chunk_router.ops import leaf_table, route_leaves
-from repro_torch.kernels.fletcher.ops import as_words, chunk_checksums
+from repro_torch.kernels.fletcher.ops import as_words, leaf_checksums
+from repro_torch.kernels.fletcher.ref import n_chunks_of
 
 CHUNK_WORDS = 1 << 16     # 256 KiB chunks
 CKPT_SCOPE = "ckpt"       # scope prefix of all checkpoint paths
+VERIFY_GROUP_BYTES = 1 << 30   # a restore checks leaves in groups this big
 
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                torch.float16: "float16", torch.float64: "float64",
@@ -231,30 +237,29 @@ class CheckpointManager:
             self._save_sync(step, staged)
 
     def _stage(self, step: int, state) -> List[_StagedLeaf]:
-        device_side = []
-        for key, t in flatten_state(state):
-            t = t.detach()
-            words = as_words(t)
-            device_side.append((key, t, words,
-                                chunk_checksums(words, CHUNK_WORDS)))
+        leaves = [(key, t.detach()) for key, t in flatten_state(state)]
+        words = [as_words(t) for _, t in leaves]
+        checksums = leaf_checksums(words, CHUNK_WORDS)
         dest, offsets = self.route(
-            [f"{self.scope}/{step}/{key}" for key, _, _, _ in device_side],
-            [len(cs) for _, _, _, cs in device_side],
-            device_side[0][2].device if device_side else "cpu")
+            [f"{self.scope}/{step}/{key}" for key, _ in leaves],
+            [n_chunks_of(w.numel(), CHUNK_WORDS) for w in words],
+            words[0].device if words else "cpu")
         # a copy even for a state on the CPU: the caller may change its
         # tensors while the save thread still reads the words
         hosts = []
-        for _, _, words, _ in device_side:
-            host = _host_buffer(words.numel(), words.is_cuda)
-            hosts.append(host.copy_(words, non_blocking=True))
-        if any(words.is_cuda for _, _, words, _ in device_side):
+        for w in words:
+            host = _host_buffer(w.numel(), w.is_cuda)
+            hosts.append(host.copy_(w, non_blocking=True))
+        if any(w.is_cuda for w in words):
             torch.cuda.current_stream().synchronize()
-        dests = np.split(dest.cpu().numpy(), offsets[1:-1])
+        cut = offsets[1:-1]
         return [_StagedLeaf(key, list(t.shape), DTYPE_NAMES[t.dtype],
-                            t.numel() * t.element_size(), host.numpy(),
-                            cs.cpu().numpy(), dest)
-                for (key, t, _, cs), host, dest in zip(device_side, hosts,
-                                                       dests)]
+                            t.numel() * t.element_size(), host.numpy(), cs,
+                            dest)
+                for (key, t), host, cs, dest in zip(
+                    leaves, hosts,
+                    np.split(checksums.cpu().numpy(), cut),
+                    np.split(dest.cpu().numpy(), cut))]
 
     def wait(self) -> None:
         """Join the in-flight save; re-raise its error, if it failed."""
@@ -322,16 +327,51 @@ class CheckpointManager:
             paths, [max((c["chunk_id"] for c in chunks[key]), default=-1) + 1
                     for key in keys], self.device)
         dests = np.split(dest.cpu().numpy(), offsets[1:-1])
-        leaves = {}
+        restored: List[_RestoredLeaf] = []
+        group: List[_RestoredLeaf] = []
+        pending = None   # (leaves, checksums) launched, not yet read back
+
+        def flush():
+            """Launch the group's check, then read back the one before."""
+            nonlocal pending
+            launched = (list(group), leaf_checksums(
+                [g.words for g in group], CHUNK_WORDS))
+            group.clear()
+            if pending:
+                self._check(*pending)
+            pending = launched
+
         for key, path, dest in zip(keys, paths, dests):
-            leaves[key] = self._restore_leaf(
-                path, key, meta.leaves[key], chunks[key],
-                dest[[c["chunk_id"] for c in chunks[key]]], verify)
+            got = self._fetch(path, key, chunks[key],
+                              dest[[c["chunk_id"] for c in chunks[key]]])
+            restored.append(got)
+            missing = got.n_present < len(got.chunks)
+            if verify:
+                group.append(got)
+                size = sum(g.words.numel() * 4 for g in group)
+                if missing or size >= VERIFY_GROUP_BYTES:
+                    flush()
+            if missing:
+                if pending:
+                    self._check(*pending)
+                raise IOError(f"missing chunk {key}#"
+                              f"{got.chunks[got.n_present]['chunk_id']}")
+        if group:
+            flush()
+        if pending:
+            self._check(*pending)
+        leaves = {}
+        for got in restored:
+            info = meta.leaves[got.key]
+            raw = got.words.view(torch.uint8)[:info["nbytes"]]
+            leaves[got.key] = raw.view(DTYPES[info["dtype"]]).reshape(
+                info["shape"])
         return unflatten_like(like_state, leaves), meta.step
 
-    def _restore_leaf(self, path: str, key: str, info: dict,
-                      chunks: List[dict], dest: np.ndarray,
-                      verify: bool) -> torch.Tensor:
+    def _fetch(self, path: str, key: str, chunks: List[dict],
+               dest: np.ndarray) -> "_RestoredLeaf":
+        """One leaf's chunks from the store, up to the first missing one,
+        in one host buffer, and their copy to ``self.device`` (queued)."""
         raws: List[bytes] = []
         for ch, d in zip(chunks, dest):
             raw = self.store.get(int(d), path, ch["chunk_id"])
@@ -344,28 +384,42 @@ class CheckpointManager:
         for r in raws:
             buf[at:at + len(r)] = r
             at += len(r)
-        words = host.to(self.device, non_blocking=True)
-        if verify and raws:
-            self._verify(key, words, raws, chunks)
-        if len(raws) < len(chunks):
-            raise IOError(f"missing chunk {key}#"
-                          f"{chunks[len(raws)]['chunk_id']}")
-        dtype = DTYPES[info["dtype"]]
-        return words.view(torch.uint8)[:info["nbytes"]].view(dtype).reshape(
-            info["shape"])
+        return _RestoredLeaf(key, chunks, len(raws),
+                             [len(r) for r in raws],
+                             host.to(self.device, non_blocking=True))
 
-    def _verify(self, key: str, words: torch.Tensor, raws: List[bytes],
-                chunks: List[dict]) -> None:
-        """Check the chunks of one leaf on its device (one ``fletcher``
-        launch); a chunk whose length differs from the manifest's fails
-        too (chunks then no longer sit at whole multiples of CHUNK_WORDS)."""
-        bad = [i for i, r in enumerate(raws) if len(r) != chunks[i]["nbytes"]]
-        if not bad:
-            got = chunk_checksums(words, CHUNK_WORDS).cpu().numpy()
-            want = np.asarray([c["checksum"] for c in chunks[:len(raws)]],
+    def _check(self, group: List["_RestoredLeaf"],
+               checksums: torch.Tensor) -> None:
+        """Compare a group's checksums with the manifest, leaf by leaf:
+        the first chunk whose checksum or length differs from the
+        manifest's fails the restore (chunks after a wrong length no
+        longer sit at whole multiples of CHUNK_WORDS, so none of them is
+        trusted)."""
+        got = checksums.cpu().numpy()
+        at = 0
+        for leaf in group:
+            n = leaf.n_present
+            rows = n_chunks_of(leaf.words.numel(), CHUNK_WORDS)
+            ok_len = [leaf.lengths[i] == leaf.chunks[i]["nbytes"]
+                      for i in range(n)]
+            n_ok = ok_len.index(False) if False in ok_len else n
+            want = np.asarray([c["checksum"] for c in leaf.chunks[:n_ok]],
                               np.int32).reshape(-1, 2)
-            bad = np.flatnonzero((got[:len(raws)] != want).any(axis=1))
-        if len(bad):
-            self.verify_failures += 1
-            raise IOError(f"checksum mismatch {key}#"
-                          f"{chunks[int(bad[0])]['chunk_id']}")
+            bad = np.flatnonzero((got[at:at + n_ok] != want).any(axis=1))
+            at += rows
+            if len(bad) or n_ok < n:
+                self.verify_failures += 1
+                first = int(bad[0]) if len(bad) else n_ok
+                raise IOError(f"checksum mismatch {leaf.key}#"
+                              f"{leaf.chunks[first]['chunk_id']}")
+
+
+@dataclass
+class _RestoredLeaf:
+    """One leaf of a restore: its manifest chunks, how many were found and
+    their byte lengths, and its words on the restore's device."""
+    key: str
+    chunks: List[dict]
+    n_present: int
+    lengths: List[int]
+    words: torch.Tensor

@@ -13,16 +13,21 @@ Kernels (one subpackage each, mirroring ``repro.kernels``):
 
 * ``chunk_router`` — ``dest_histogram2d``: per-row destination histogram of
   the exchange planner; ``dest_histogram``: destination histogram of one
-  vector (``histogram_rows``); ``route_chunks``: per-chunk destinations
-  (and a destination histogram) of one vector of descriptors, and
+  vector (``histogram_rows``; one thread-block cluster, one launch, up to
+  131,072 values); ``route_chunks``: per-chunk destinations (and a
+  destination histogram) of one vector of descriptors, and
   ``route_chunks_segmented`` (same source): the destinations of every
   chunk of a whole checkpoint, one launch a save or restore;
 * ``chunk_pack`` — ``pack_chunks``: the send-order row gather;
-* ``fletcher`` — ``fletcher``: per-chunk checksums of a checkpoint leaf;
+* ``fletcher`` — ``fletcher``: per-chunk checksums of one vector of words,
+  and ``fletcher_segmented`` (same source): the checksums of every chunk
+  of many leaves, one launch a save or a restore's group of leaves;
 * ``flash_attention`` — ``flash_attention``: blocked online-softmax
   attention over (B, S, H, D) q/k/v in bf16 (wgmma fed by TMA);
   ``flash_attention_f32``: the same in float32 (3xTF32 on the tensor
-  cores).
+  cores); ``flash_attention_wide``: float32 head dims above 256 (3xTF32,
+  Q and K streamed 64 dims at a time, one 128-column output slice a
+  block).
 
 Each subpackage holds ``<name>.py`` (the CUDA wrapper and its launch
 count), ``ops.py`` (dispatch: the kernel for CUDA tensors, the plain
@@ -45,7 +50,8 @@ BUILD = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("dest_histogram2d", "pack_chunks", "fletcher", "route_chunks",
-           "dest_histogram", "flash_attention", "flash_attention_f32")
+           "dest_histogram", "flash_attention", "flash_attention_f32",
+           "flash_attention_wide")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -17,14 +17,22 @@ from repro_torch.kernels import CudaKernel, check_cuda
 
 DEST_HISTOGRAM = CudaKernel(
     "dest_histogram",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int])
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_longlong])
+# the largest n counted by one thread-block cluster in one launch; past it
+# the kernel takes its grid path (a memset, then up to two blocks an SM),
+# which was faster from 262,144 values on (chip_smoke.py's sweep on an H100
+# 80GB HBM3 at 700 W: 4.39 us against 4.85 at 131,072, 6.47 against 4.90
+# at 262,144)
+CLUSTER_MAX_N = 1 << 17
 
 
 def dest_histogram(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     """(n,) int32 CUDA destinations → (n_bins,) int32 counts (kernel).
 
     Values outside [0, n_bins) are counted nowhere; n = 0 gives zeros
-    without a launch.  Raises on CPU tensors, other dtypes or
+    without a launch.  Up to ``CLUSTER_MAX_N`` values (and 12288 bins) it
+    is one launch with no memset.  Raises on CPU tensors, other dtypes or
     non-contiguous input.
     """
     check_cuda("dest", dest, (torch.int32,), 1)
@@ -34,7 +42,8 @@ def dest_histogram(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     if n == 0 or n_bins == 0:
         return torch.zeros(n_bins, dtype=torch.int32, device=dest.device)
     counts = torch.empty(n_bins, dtype=torch.int32, device=dest.device)
-    DEST_HISTOGRAM.launch(dest.data_ptr(), counts.data_ptr(), n, n_bins)
+    DEST_HISTOGRAM.launch(dest.data_ptr(), counts.data_ptr(), n, n_bins,
+                          CLUSTER_MAX_N)
     return counts
 
 

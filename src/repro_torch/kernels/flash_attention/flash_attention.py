@@ -1,12 +1,14 @@
 """CUDA wrappers of the flash-attention kernels: ``csrc/flash_attention.cu``
-(bf16, wgmma fed by TMA) and ``csrc/flash_attention_f32.cu`` (float32,
-3xTF32 on the tensor cores).
+(bf16, wgmma fed by TMA), ``csrc/flash_attention_f32.cu`` (float32, 3xTF32
+on the tensor cores) and ``csrc/flash_attention_wide.cu`` (float32 head dims
+above 256, the same arithmetic over streamed 64-dim chunks).
 
-Both replace ``repro.kernels.flash_attention.flash_attention.
+All replace ``repro.kernels.flash_attention.flash_attention.
 flash_attention_bhsd``; ``flash_attention_bhsd`` below picks one by dtype
-(bf16 → ``FLASH_ATTENTION``, float32 → ``FLASH_ATTENTION_F32``), and each
-counts its own launches.  The source files' headers say what bounds each
-kernel, how its tiles are laid out and how it is built.
+and head dim (bf16 → ``FLASH_ATTENTION``, float32 → ``FLASH_ATTENTION_F32``,
+float32 above 256 → ``FLASH_ATTENTION_WIDE``), and each counts its own
+launches.  The source files' headers say what bounds each kernel, how its
+tiles are laid out and how it is built.
 """
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ import torch
 
 from repro_torch.kernels import CudaKernel
 
-# head dims with an instance, and query rows a block (both sources)
+# head dims with an instance, and query rows a block (all sources); above
+# the last instance, float32 head dims that are multiples of WIDE_STEP
 HEAD_DIMS = (64, 80, 128, 256)
+WIDE_STEP = 128
 BLOCK_Q = 64
 TMA_ALIGN = 16                    # bytes: TMA's base and stride alignment
 
@@ -29,11 +33,12 @@ FLASH_ATTENTION = CudaKernel(
      ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
      ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int])
 
-FLASH_ATTENTION_F32 = CudaKernel(
-    "flash_attention_f32",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int])
+_F32_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_int]
+FLASH_ATTENTION_F32 = CudaKernel("flash_attention_f32", _F32_ARGS)
+FLASH_ATTENTION_WIDE = CudaKernel("flash_attention_wide", _F32_ARGS)
 
 
 class TmaGeometry(NamedTuple):
@@ -113,10 +118,12 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, S, D) transposes all are; a view that is not (a slice one
     element in, say) raises.  float32 goes to the 3xTF32 tensor-core
     kernel (``FLASH_ATTENTION_F32``), which needs only the head dim
-    contiguous.
-    This is a dispatch by dtype: nothing falls back from one kernel to the
-    other.  Raises on CPU tensors, mismatched shapes, devices or dtypes,
-    and head dims the kernels have no instance for.
+    contiguous; float32 head dims above 256 that are multiples of 128 go
+    to ``FLASH_ATTENTION_WIDE`` (the entry point pads to one and brings
+    bf16 to float32 there).
+    This is a dispatch by dtype and head dim: nothing falls back from one
+    kernel to another.  Raises on CPU tensors, mismatched shapes, devices
+    or dtypes, and head dims the kernels have no instance for.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -134,9 +141,12 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
     B, H, S, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported: the kernel takes "
-                         f"{HEAD_DIMS}")
+    wide = D > HEAD_DIMS[-1]
+    if not (D % WIDE_STEP == 0 and q.dtype == torch.float32 if wide
+            else D in HEAD_DIMS):
+        raise ValueError(f"head dim {D} not supported in {q.dtype}: the "
+                         f"kernels take {HEAD_DIMS}, and float32 multiples "
+                         f"of {WIDE_STEP} above {HEAD_DIMS[-1]}")
     if B * H * -(-S // BLOCK_Q) >= 2 ** 31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
     out = torch.empty_like(q)
@@ -154,7 +164,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     strides = (ctypes.c_longlong * 12)(*[
         t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)])
-    FLASH_ATTENTION_F32.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), strides, B, H, S, D,
-                               float(scale), int(bool(causal)))
+    kernel = FLASH_ATTENTION_WIDE if wide else FLASH_ATTENTION_F32
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  strides, B, H, S, D, float(scale), int(bool(causal)))
     return out

@@ -8,21 +8,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIMS, flash_attention_bhsd, tma_problem)
+    HEAD_DIMS, WIDE_STEP, flash_attention_bhsd, tma_problem)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
 def padded_head_dim(d: int) -> int:
-    """The smallest head dim with a kernel instance that is ≥ ``d``.
-
-    Raises ``ValueError`` above the largest instance (256): no
-    configuration of the reference has such a head dim.
-    """
+    """The smallest head dim a kernel takes that is ≥ ``d``: an instance
+    up to 256, above it the next multiple of 128 (the wide float32
+    kernel; the reference pads every D to a multiple of 128)."""
     for inst in HEAD_DIMS:
         if d <= inst:
             return inst
-    raise ValueError(f"head dim {d} not supported: the kernels take head "
-                     f"dims up to {HEAD_DIMS[-1]}")
+    return -(-d // WIDE_STEP) * WIDE_STEP
 
 
 def _readable(view: torch.Tensor) -> torch.Tensor:
@@ -39,19 +36,22 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    kernel=flash_attention_bhsd) -> torch.Tensor:
     """What the entry point does around the kernel on CUDA.
 
-    bf16 stays bf16; any other dtype is computed in float32 and rounded
-    once to its own (the reference casts to float32 inside its body).  D
-    is zero-padded to ``padded_head_dim(D)``: zero columns add nothing to
-    q·k, the scale stays the caller's, and the padded output columns are
-    cut off.  Views the kernel cannot read in place are copied
+    bf16 stays bf16 up to D = 256; any other dtype, and every dtype above
+    256 (the wide kernel is float32 only), is computed in float32 and
+    rounded once to its own (the reference casts to float32 inside its
+    body).  D is zero-padded to ``padded_head_dim(D)``: zero columns add
+    nothing to q·k, the scale stays the caller's, and the padded output
+    columns are cut off.  Views the kernel cannot read in place are copied
     (``_readable``).  ``kernel`` takes (B, H, S, D) views; the tests pass
     a plain version to check all of this on the CPU.
     """
     out_dtype = q.dtype
-    q, k, v = (x if x.dtype == torch.bfloat16 else x.float()
-               for x in (q, k, v))
     D = q.shape[-1]
-    pad = padded_head_dim(D) - D
+    padded = padded_head_dim(D)
+    keep_bf16 = padded <= HEAD_DIMS[-1]
+    q, k, v = (x if x.dtype == torch.bfloat16 and keep_bf16 else x.float()
+               for x in (q, k, v))
+    pad = padded - D
     if pad:
         q, k, v = (F.pad(x, (0, pad)) for x in (q, k, v))
     o = kernel(*(_readable(x.transpose(1, 2)) for x in (q, k, v)),
@@ -71,10 +71,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA tensors go through a ``flash_attention`` kernel (or raise): bf16
     through the Hopper kernel, any other dtype through the float32 one
     (``attention_bshd``).  Like the reference, which pads D to a multiple
-    of 128 lanes, the entry point takes any head dim up to 256 and zero-pads
-    it to the next kernel instance (64, 80, 128 or 256); it takes any
-    strides, copying a view the kernel cannot read in place.  CPU tensors
-    go through the plain version.  ``block_q``, ``block_k`` and
+    of 128 lanes, the entry point takes any head dim: up to 256 it
+    zero-pads D to the next kernel instance (64, 80, 128 or 256), above it
+    to the next multiple of 128, computed in float32 by the wide kernel;
+    it takes any strides, copying a view the kernel cannot read in place.
+    CPU tensors go through the plain version.  ``block_q``, ``block_k`` and
     ``interpret`` are the TPU kernel's tiling and interpret mode: accepted
     and ignored (the CUDA kernels pick their own tiles).
     """

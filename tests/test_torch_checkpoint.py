@@ -32,8 +32,11 @@ from repro_torch.checkpoint import manager as manager_mod
 from repro_torch.kernels.chunk_router.ops import (leaf_table, route_chunks,
                                                   route_leaves)
 from repro_torch.kernels.chunk_router.ref import route_chunks_ref
-from repro_torch.kernels.fletcher.ops import as_words, chunk_checksums
-from repro_torch.kernels.fletcher.ref import fletcher_chunks_ref, fletcher_ref
+from repro_torch.kernels.fletcher.ops import (as_words, chunk_checksums,
+                                              leaf_checksums)
+from repro_torch.kernels.fletcher.ref import (fletcher_chunks_ref,
+                                              fletcher_ref,
+                                              fletcher_segmented_ref)
 from repro_torch.models.convert import tensor_from_numpy
 from repro_torch.train.optimizer import AdamWState
 
@@ -124,6 +127,39 @@ def test_fletcher_detects_bitflip_and_swap():
     x3 = x.copy()
     x3[[10, 20]] = x3[[20, 10]]
     assert not torch.equal(fletcher_ref(torch.as_tensor(x3)), base)
+
+
+def _mixed_leaves(chunk):
+    """Leaves of every kind a save holds: empty, one word, exact multiples
+    of the chunk, a short last chunk, a view one word into its storage
+    (unaligned on the card), and runs of the word 0x80000000 (-0.0)."""
+    big = torch.as_tensor(_words(3 * chunk + 1))
+    leaves = [np.zeros(0, np.int32), _words(1), _words(chunk),
+              _words(2 * chunk), _words(chunk + 17), _words(5),
+              np.zeros(0, np.int32), np.full(chunk + 3, INT_MIN, np.int32)]
+    return ([torch.as_tensor(w) for w in leaves[:4]] + [big[1:]] +
+            [torch.as_tensor(w) for w in leaves[4:]])
+
+
+@pytest.mark.parametrize("chunk", [CHUNK_WORDS, 1000, 7])
+def test_fletcher_segmented_plain_matches_per_leaf_and_oracle(chunk):
+    """The segmented plain version (zero-padded rows) equals the per-leaf
+    plain version (index_add) leaf after leaf, and the reference's
+    ``fletcher_ref`` on every chunk; an empty leaf keeps one (0, 0)."""
+    leaves = _mixed_leaves(chunk)
+    got = fletcher_segmented_ref(leaves, chunk)
+    assert got.dtype == torch.int32
+    per_leaf = torch.cat([fletcher_chunks_ref(w, chunk) for w in leaves])
+    assert torch.equal(got, per_leaf)
+    want = []
+    for w in leaves:
+        w = w.numpy()
+        want += [j_fletcher_ref(w[c * chunk:(c + 1) * chunk]) if len(w)
+                 else np.zeros(2, np.int32)
+                 for c in range(max(1, -(-len(w) // chunk)))]
+    np.testing.assert_array_equal(got.numpy(), np.stack(want))
+    assert torch.equal(leaf_checksums(leaves, chunk), got)
+    assert leaf_checksums([], chunk).shape == (0, 2)
 
 
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (33, 17)),
@@ -265,6 +301,127 @@ def test_save_and_restore_route_every_leaf_in_one_call(monkeypatch):
                                    mode=int(policy.mode_for_path(path)))
             for c, node in enumerate(want.tolist()):
                 assert (str_hash(path), c) in tm.store.nodes[node]
+
+
+def _count_calls(monkeypatch, name):
+    """Wrap ``manager_mod.<name>``; the list it returns gets the number of
+    leaves (the length of the first argument) of every call."""
+    calls = []
+    real = getattr(manager_mod, name)
+
+    def counted(first, *args, **kw):
+        calls.append(len(first))
+        return real(first, *args, **kw)
+
+    monkeypatch.setattr(manager_mod, name, counted)
+    return calls
+
+
+def test_save_checksums_every_leaf_in_one_call(monkeypatch):
+    """One checksum call a save, whatever the number of leaves, and the
+    manifest holds the per-leaf checksums."""
+    calls = _count_calls(monkeypatch, "leaf_checksums")
+    np_state = _np_state()
+    with tempfile.TemporaryDirectory() as d:
+        tm = CheckpointManager(d, POLICIES[4][2], async_save=False,
+                               device="cpu")
+        tm.save(2, _torch_state(np_state))
+        leaves = flatten_state(_torch_state(np_state))
+        assert calls == [len(leaves)]
+        meta = json.loads((tm.dir / "ckpt_2.json").read_text())
+        want = [[int(x) for x in row] for _, t in leaves
+                for row in chunk_checksums(as_words(t), CHUNK_WORDS)]
+        assert [c["checksum"] for c in meta["chunks"]] == want
+
+
+def _leafy_state(seed=0):
+    """Eight leaves of 0 to 3 chunks (a group boundary falls inside, at
+    the end of and after a leaf when groups are two chunks)."""
+    r = np.random.RandomState(seed)
+    sizes = [2 * CHUNK_WORDS, 5, CHUNK_WORDS + 1, 0, CHUNK_WORDS,
+             3 * CHUNK_WORDS - 2, 1, CHUNK_WORDS // 2]
+    return {f"w{i}": torch.as_tensor(r.randint(INT_MIN, INT_MAX, n,
+                                               dtype=np.int64).astype(
+        np.int32)) for i, n in enumerate(sizes)}
+
+
+@pytest.mark.parametrize("group_chunks", [None, 1, 2, 3])
+def test_restore_checks_leaves_in_groups(monkeypatch, group_chunks):
+    """A restore checks whole leaves in groups of at least
+    VERIFY_GROUP_BYTES, one checksum call a group (here shrunk to a few
+    chunks so a small state spans several); the result is the same
+    whatever the group size."""
+    if group_chunks:
+        monkeypatch.setattr(manager_mod, "VERIFY_GROUP_BYTES",
+                            group_chunks * CHUNK_WORDS * 4)
+    state = _leafy_state()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = _mgr(d)
+        mgr.save(1, state)
+        calls = _count_calls(monkeypatch, "leaf_checksums")
+        restored, step = mgr.restore(1, state)
+    assert step == 1
+    for key, t in state.items():               # int32 leaves: bit for bit
+        assert restored[key].dtype == t.dtype and torch.equal(restored[key], t)
+    # the groups: whole leaves in order until their words reach the size
+    want, n, size = [], 0, 0
+    limit = manager_mod.VERIFY_GROUP_BYTES
+    for _, t in flatten_state(state):
+        n, size = n + 1, size + t.numel() * 4
+        if size >= limit:
+            want, n, size = want + [n], 0, 0
+    want += [n] if n else []
+    assert calls == want
+    assert len(calls) == (1 if group_chunks is None else
+                          {1: 5, 2: 4, 3: 3}[group_chunks])
+
+
+def _break(mgr, step, key, cid, how):
+    """Corrupt (flip one bit) or delete chunk ``cid`` of leaf ``key``."""
+    path = f"{mgr.scope}/{step}/{key}"
+    node = next(n for n in mgr.store.nodes if (str_hash(path), cid) in n)
+    if how == "corrupt":
+        b = bytearray(node[(str_hash(path), cid)])
+        b[5] ^= 0x10
+        node[(str_hash(path), cid)] = bytes(b)
+    else:
+        del node[(str_hash(path), cid)]
+
+
+@pytest.mark.parametrize("group_chunks", [None, 1, 2])
+def test_corrupt_late_leaf_and_missing_later_leaf(monkeypatch, group_chunks):
+    """A corrupt chunk in a late leaf and a missing chunk in a later one:
+    the corrupt one is reported (it comes first in leaf order), with one
+    verify failure; with only the missing chunk left, it is reported and
+    no failure is counted; a wrong length counts as a bad chunk.  The
+    same whatever the group size."""
+    if group_chunks:
+        monkeypatch.setattr(manager_mod, "VERIFY_GROUP_BYTES",
+                            group_chunks * CHUNK_WORDS * 4)
+    state = _leafy_state(1)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = _mgr(d)
+        mgr.save(1, state)
+        _break(mgr, 1, "['w5']", 2, "corrupt")
+        _break(mgr, 1, "['w7']", 0, "delete")
+        with pytest.raises(IOError, match=r"^checksum mismatch \['w5'\]#2$"):
+            mgr.restore(1, state)
+        assert mgr.verify_failures == 1
+        with pytest.raises(IOError, match=r"^missing chunk \['w7'\]#0$"):
+            mgr.restore(1, state, verify=False)
+        mgr.save(2, state)
+        _break(mgr, 2, "['w7']", 0, "delete")
+        with pytest.raises(IOError, match=r"^missing chunk \['w7'\]#0$"):
+            mgr.restore(2, state)
+        assert mgr.verify_failures == 1
+        mgr.save(3, state)
+        path = f"{mgr.scope}/3/['w2']"
+        node = next(n for n in mgr.store.nodes if (str_hash(path), 0) in n)
+        node[(str_hash(path), 0)] += b"\0\0\0\0"
+        _break(mgr, 3, "['w5']", 1, "corrupt")
+        with pytest.raises(IOError, match=r"^checksum mismatch \['w2'\]#0$"):
+            mgr.restore(3, state)
+        assert mgr.verify_failures == 2
 
 
 # ---------------------------------------------------------------------------

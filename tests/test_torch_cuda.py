@@ -12,7 +12,8 @@ from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS, pack_chunks
 from repro_torch.kernels.chunk_pack.ops import gather_rows
 from repro_torch.kernels.chunk_pack.ref import pack_chunks_ref
 from repro_torch.kernels.chunk_router.chunk_router import (
-    DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS, ROUTE_CHUNKS_SEGMENTED)
+    CLUSTER_MAX_N, DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS,
+    ROUTE_CHUNKS_SEGMENTED)
 from repro_torch.kernels.chunk_router.chunk_router import \
     route_chunks as route_chunks_cuda
 from repro_torch.kernels.chunk_router.ops import (histogram_rows,
@@ -25,12 +26,17 @@ from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
                                                   route_chunks_segmented_ref)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
-    FLASH_ATTENTION, FLASH_ATTENTION_F32, flash_attention_bhsd)
+    FLASH_ATTENTION, FLASH_ATTENTION_F32, FLASH_ATTENTION_WIDE,
+    flash_attention_bhsd)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_ref)
-from repro_torch.kernels.fletcher.fletcher import FLETCHER, fletcher_chunks
-from repro_torch.kernels.fletcher.ops import chunk_checksums
-from repro_torch.kernels.fletcher.ref import fletcher_chunks_ref
+from repro_torch.kernels.fletcher.fletcher import (FLETCHER,
+                                                   FLETCHER_SEGMENTED,
+                                                   fletcher_chunks,
+                                                   fletcher_segmented)
+from repro_torch.kernels.fletcher.ops import chunk_checksums, leaf_checksums
+from repro_torch.kernels.fletcher.ref import (fletcher_chunks_ref,
+                                              fletcher_segmented_ref)
 
 RNG = np.random.RandomState(7)
 
@@ -117,6 +123,67 @@ def test_fletcher_kernel_wrapper_rejects_cpu_tensors():
         fletcher_chunks(torch.zeros(4, dtype=torch.int32), 4)
 
 
+def _leaves(cuda, chunk):
+    """Leaves of a save: empty, one word, exact multiples of the chunk, a
+    short last chunk, bases 4, 8 and 12 bytes past 16-byte alignment (the
+    4-byte load path)."""
+    big = _words(4 * chunk + 9, cuda)
+    return [_words(0, cuda), _words(1, cuda), _words(chunk, cuda),
+            _words(3 * chunk, cuda), big[1:], _words(chunk + 17, cuda),
+            big[2:chunk + 5], big[3:], _words(0, cuda), _words(7, cuda)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [65536, 1000, 4, 1])
+def test_cuda_fletcher_segmented_matches_plain(cuda, chunk):
+    """Every chunk of many leaves in one launch: bit for bit the plain
+    version and the per-leaf kernel, aligned and unaligned leaf bases."""
+    leaves = _leaves(cuda, chunk)
+    before = FLETCHER_SEGMENTED.launches
+    got = leaf_checksums(leaves, chunk)
+    torch.cuda.synchronize()
+    assert FLETCHER_SEGMENTED.launches == before + 1
+    assert torch.equal(got, fletcher_segmented_ref(leaves, chunk))
+    assert torch.equal(got, torch.cat([fletcher_chunks(w, chunk)
+                                       for w in leaves]))
+
+
+@pytest.mark.cuda
+def test_cuda_fletcher_segmented_many_leaves(cuda):
+    """3000 leaves (a leaf search over three rounds of probes)."""
+    leaves = [_words(int(n), cuda) for n in RNG.randint(0, 300, 3000)]
+    got = fletcher_segmented(leaves, 64)
+    assert torch.equal(got, fletcher_segmented_ref(leaves, 64))
+
+
+def test_fletcher_segmented_wrapper_rejects_bad_input():
+    """CPU tensors, no leaves, and chunks the kernel's one block a chunk
+    cannot cover."""
+    w = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fletcher_segmented([w], 4)
+    with pytest.raises(ValueError, match="at least one leaf"):
+        fletcher_segmented([], 4)
+    for chunk in (0, 65537):
+        with pytest.raises(ValueError, match="chunk_words"):
+            fletcher_segmented([w], chunk)
+
+
+@pytest.mark.cuda
+def test_cuda_fletcher_segmented_rejects_bad_leaves(cuda):
+    w = _words(8, cuda)
+    before = FLETCHER_SEGMENTED.launches
+    with pytest.raises(ValueError, match="int32"):
+        fletcher_segmented([w, w.to(torch.int64)], 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fletcher_segmented([w, _words(16, cuda)[::2]], 4)
+    with pytest.raises(ValueError, match="dims"):
+        fletcher_segmented([w.view(2, 4)], 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fletcher_segmented([w, w.cpu()], 4)
+    assert FLETCHER_SEGMENTED.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", [1, 2, 3, 4])
 @pytest.mark.parametrize("n,nodes", [(1, 32), (1000, 64), (45770, 32),
@@ -154,7 +221,7 @@ def test_cuda_checkpoint_roundtrip_goes_through_both_kernels(cuda, tmp_path):
              "b": torch.randn(5, 5, 5, device=cuda).to(torch.bfloat16),
              "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
     mgr = CheckpointManager(str(tmp_path), policy, async_save=True)
-    f0, r0 = FLETCHER.launches, ROUTE_CHUNKS_SEGMENTED.launches
+    f0, r0 = FLETCHER_SEGMENTED.launches, ROUTE_CHUNKS_SEGMENTED.launches
     mgr.save(1, state)
     mgr.wait()
     restored, step = mgr.restore(1, state)
@@ -163,8 +230,9 @@ def test_cuda_checkpoint_roundtrip_goes_through_both_kernels(cuda, tmp_path):
         assert restored[k].is_cuda and restored[k].dtype == state[k].dtype
         assert torch.equal(restored[k].reshape(-1).view(torch.uint8),
                            state[k].reshape(-1).view(torch.uint8))
-    # a checksum launch a leaf; one routing launch a save and one a restore
-    assert FLETCHER.launches == f0 + 6
+    # one checksum launch and one routing launch a save, and one each a
+    # restore (the state is far below a verify group)
+    assert FLETCHER_SEGMENTED.launches == f0 + 2
     assert ROUTE_CHUNKS_SEGMENTED.launches == r0 + 2
 
 
@@ -202,6 +270,31 @@ def test_cuda_dest_histogram_matches_plain(cuda, n, n_bins):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [45884, CLUSTER_MAX_N, CLUSTER_MAX_N + 1])
+@pytest.mark.parametrize("n_bins", [1, 32, 768, 769, 12288, 12289, 50000])
+def test_cuda_dest_histogram_both_paths_and_bin_counts(cuda, n, n_bins):
+    """Either side of the one-cluster path's limits: n up to and past
+    CLUSTER_MAX_N, bins that fit a block's 48 KB of shared memory
+    (<= 12288) and past it (the grid path's opt-in)."""
+    dest = torch.as_tensor(RNG.randint(-1, n_bins + 2, n).astype(np.int32),
+                           device=cuda)
+    got = histogram_rows(dest, n_bins=n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dest_histogram_ref(dest, n_bins=n_bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_dest_histogram_unaligned_view(cuda, offset):
+    """A view 4, 8 or 12 bytes past 16-byte alignment takes the 4-byte
+    loads."""
+    dest = torch.as_tensor(RNG.randint(-1, 35, 50000).astype(np.int32),
+                           device=cuda)[offset:]
+    assert torch.equal(histogram_rows(dest, n_bins=33),
+                       dest_histogram_ref(dest, n_bins=33))
+
+
+@pytest.mark.cuda
 def test_cuda_dest_histogram_all_sentinel_counts_nothing(cuda):
     dest = torch.full((10000,), -1, dtype=torch.int32, device=cuda)
     dest[::3] = 33
@@ -211,6 +304,28 @@ def test_cuda_dest_histogram_all_sentinel_counts_nothing(cuda):
 def _launched():
     """The flash-attention launch counts, (bf16 kernel, float32 kernel)."""
     return FLASH_ATTENTION.launches, FLASH_ATTENTION_F32.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [320, 384, 512, 640])
+@pytest.mark.parametrize("S", [1, 65, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_wide_head_dims(cuda, D, S, dtype, causal):
+    """Head dims above 256 through the wide float32 kernel (bf16 computed
+    in float32 and rounded once): within 2e-5 (3xTF32) of the float32
+    plain version, 2e-2 in bf16."""
+    q, k, v = (torch.as_tensor(RNG.randn(2, S, 3, D).astype(np.float32),
+                               device=cuda).to(dtype) for _ in range(3))
+    before = FLASH_ATTENTION_WIDE.launches, _launched()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (FLASH_ATTENTION_WIDE.launches, _launched()) == (
+        before[0] + 1, before[1])
+    assert got.shape == q.shape and got.dtype == dtype
+    want = flash_attention_ref(q, k, v, scale=D ** -0.5, causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 def _one_more(before, dtype):
@@ -367,9 +482,14 @@ def test_cuda_flash_attention_misaligned_bf16_view_through_entry_point(cuda):
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_rejects_unsupported_input(cuda):
-    x = torch.zeros((1, 64, 2, 320), device=cuda)
+    """The kernel's wrapper takes the instances' head dims, and above 256
+    float32 multiples of 128 only (the entry point pads and converts)."""
+    x = torch.zeros((1, 2, 64, 320), device=cuda)
     with pytest.raises(ValueError, match="head dim 320"):
-        flash_attention(x, x, x)
+        flash_attention_bhsd(x, x, x, scale=0.1)
+    x = torch.zeros((1, 2, 64, 384), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 384"):
+        flash_attention_bhsd(x, x, x, scale=0.1)
     w = torch.zeros((1, 2, 64, 96), device=cuda)
     with pytest.raises(ValueError, match="head dim 96"):
         flash_attention_bhsd(w, w, w, scale=0.1)

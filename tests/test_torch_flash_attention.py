@@ -175,12 +175,48 @@ def test_float16_goes_through_float32_and_rounds_once():
     _close(got, ref, 2e-3)
 
 
-def test_head_dim_above_256_raises():
-    with pytest.raises(ValueError, match="up to 256"):
-        padded_head_dim(257)
-    x = torch.zeros((1, 8, 1, 320))
-    with pytest.raises(ValueError, match="head dim 320"):
-        attention_bshd(x, x, x, scale=0.1, causal=True, kernel=_plain_bhsd)
+@pytest.mark.parametrize("D", [320, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_head_dims_match_reference_pallas(D, dtype, causal):
+    """Head dims above 256, which the reference pads to a multiple of 128
+    and attends at: the entry point pads to the wide kernel's multiple of
+    128 and computes in float32, also for bf16 (rounded once at the end,
+    as the reference's body casts to float32).  Against the Pallas kernel
+    in interpret mode: 2e-5 in float32, 2e-2 in bf16 (one rounding of a
+    float32 result to bf16 on each side)."""
+    (jq, jk, jv), (tq, tk, tv), tol = _qkv((1, 80, 2, D), dtype)
+    seen = []
+
+    def kernel(q, k, v, *, scale, causal):
+        seen.append((q.dtype, q.shape[-1]))
+        return _plain_bhsd(q, k, v, scale=scale, causal=causal)
+
+    ref = j_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                  interpret=True)
+    got = attention_bshd(tq, tk, tv, scale=D ** -0.5, causal=causal,
+                         kernel=kernel)
+    assert seen == [(torch.float32, -(-D // 128) * 128)]
+    assert got.dtype == tq.dtype and tuple(got.shape) == (1, 80, 2, D)
+    _close(got, ref, tol)
+
+
+def test_wide_head_dim_pad_and_cut_keep_the_callers_scale():
+    """D = 320 is padded to 384 with zero columns and cut back; the scale
+    is the caller's, not 1/sqrt(384): equal to the reference at that
+    scale, and far from it at 1/sqrt(384)."""
+    assert [padded_head_dim(d) for d in (257, 320, 384, 512, 513)] == [
+        384, 384, 384, 512, 640]
+    (jq, jk, jv), (tq, tk, tv), tol = _qkv((2, 64, 1, 320), "float32")
+    ref = j_flash(jq, jk, jv, causal=True, scale=0.2, block_q=64,
+                  block_k=64, interpret=True)
+    got = attention_bshd(tq, tk, tv, scale=0.2, causal=True,
+                         kernel=_plain_bhsd)
+    _close(got, ref, tol)
+    _close(got, flash_attention_ref(tq, tk, tv, scale=0.2, causal=True),
+           tol)
+    other = flash_attention_ref(tq, tk, tv, scale=384 ** -0.5, causal=True)
+    assert float((got - other).abs().max()) > 1e-2
 
 
 @pytest.mark.parametrize("case", ["misaligned", "strided", "head_dim"])
