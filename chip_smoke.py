@@ -14,7 +14,11 @@ Phases, each of which must succeed or the run fails without a result line:
       another block shape (``HIST_OTHER_SHAPE``), for timing only;
   (b) each kernel of the data plane and the checkpoint path against its
       plain PyTorch version on the card, bit for bit, at the shapes its
-      main path gives it and at sentinel and edge shapes (``fletcher`` up
+      main path gives it and at sentinel and edge shapes (the planner's
+      ``route_plan`` and ``dest_budgets`` on the first write's data plane
+      and on the CPU tests' sweep: 1 to 64 nodes, 0 to 100 requests, rows
+      all invalid, skewed rows, uniform, measured, short and random
+      budgets, and up to 1024 requests and 49,999 nodes; ``fletcher`` up
       to the full embedding leaf, 302 M words in 4608 chunks;
       ``fletcher_segmented`` on mixed leaves: empty, one word, unaligned
       bases, 3000 leaves;
@@ -64,15 +68,21 @@ Phases, each of which must succeed or the run fails without a result line:
       slots per node (an 8 GiB data table), 8 requests per node per call.
       Three fused writes, cross-node two-phase reads, stat, create and
       remove; every acknowledged write reads back bit for bit, stat sizes
-      match, removed files report not found, and both kernels' launch
-      counts (zeroed just before) are above 0;
+      match, removed files report not found, the data plane's kernels'
+      launch counts (zeroed just before) are above 0, and the planner made
+      exactly one ``route_plan`` launch a routing round and one
+      ``dest_budgets`` launch a measured spec;
   (d) the pinned seed digests of the JAX package's tests, through the
       engine and through ``BBClient``, dense and compacted, all four modes;
   (e) times: each kernel, its plain version and a one-call PyTorch
       yardstick (CUDA events; profiler device time for the launch-bound
-      histogram) beside the bound; the client's write / read / stat
-      latency (host clock), the read's stage breakdown, and a profile of
-      one write, read and stat (device busy time, idle share, top kernels);
+      planner kernels, beside an empty kernel's queued launch, the launch
+      floor) beside the bound; one ragged and one uniform plan round under
+      the profiler, each one device operation with no host-to-device copy
+      and no stream sync; the client's write / read / stat latency (host
+      clock), the read's stage breakdown, and a profile of one write, read
+      and stat (device busy time, idle share, launches, host syncs,
+      copies, top kernels);
   (f) training: ``run_training`` with gemma3-1b at full width (26 layers,
       d 1152, vocab 262144, 999,812,736 params, bf16 compute, f32 params),
       batch 4 × 1024 tokens, checkpoints every 2 steps through the
@@ -98,6 +108,11 @@ Before the last line it prints the card's name and power limit (as
 them) and one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA card is present or any phase fails.
+
+``--calls-only`` fills the deployment and times and profiles one write,
+read and stat, printing one ``{"calls": ...}`` line and no result line;
+it needs only what every slice's package has, so a copy of this script
+beside an earlier commit's ``src/`` measures that commit on the same card.
 """
 from __future__ import annotations
 
@@ -289,11 +304,14 @@ def random_payload(gen: torch.Generator) -> torch.Tensor:
                          dtype=torch.int32, device=DEVICE, generator=gen)
 
 
-def first_write_inputs(seed: int):
+def first_write_inputs(seed: int) -> dict:
     """The kernels' inputs on the deployment's first write, rebuilt with
-    the port's own planner: the data plane's destination histogram input,
-    the send-order pack (fields, rebased slots) and the ragged exchange's
-    receive map."""
+    the port's own planner: the data plane's destinations and validity
+    (``dest``, ``valid``), its measured spec and the spec's device table
+    (``route_plan``'s and ``dest_budgets``' inputs), the same destinations
+    with the invalid-slot sentinel (``hist_in``, the per-row histogram's
+    input), the send-order pack (``fields``, rebased slots ``idx``) and the
+    ragged exchange's receive map (``recv_rows``)."""
     from repro_torch.core import exchange_plan as xp
     from repro_torch.core.client import BBClient
     from repro_torch.core.layouts import route_data
@@ -305,7 +323,7 @@ def first_write_inputs(seed: int):
     valid = torch.ones((N_NODES, Q), dtype=torch.bool, device=DEVICE)
     ranks = torch.arange(N_NODES, dtype=torch.int32, device=DEVICE)[:, None]
     dest = route_data(mode, N_NODES, req.path_hash, req.chunk_id, ranks)
-    hist_in = xp._sentinel_dest(dest, valid, N_NODES)
+    hist_in = torch.where(valid, dest, N_NODES).to(torch.int32)
     spec = xp.plan_ragged_spec(dest, valid, N_NODES)
     send_idx = xp._compact_plan_ragged(dest, valid, N_NODES, spec)[0]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -316,9 +334,10 @@ def first_write_inputs(seed: int):
     base = torch.arange(N_NODES, dtype=torch.int32, device=DEVICE)[:, None]
     idx = torch.where(send_idx >= 0, send_idx + base * Q, -1).to(
         torch.int32).reshape(-1)
-    recv_rows = torch.as_tensor(
-        xp._ragged_recv_rows(spec, N_NODES).reshape(-1), device=DEVICE)
-    return hist_in, fields.contiguous(), idx, recv_rows, spec
+    tables = xp.spec_tables(spec, dest.device)
+    return dict(dest=dest, valid=valid, spec=spec, table=tables.table,
+                hist_in=hist_in, fields=fields.contiguous(), idx=idx,
+                recv_rows=tables.recv_rows.reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +355,8 @@ def phase_kernels_vs_plain(seed: int) -> dict:
     from repro_torch.kernels.chunk_router.chunk_router import \
         dest_histogram2d
     from repro_torch.kernels.chunk_router.ref import dest_histogram2d_ref
-    err = {"dest_histogram2d": 0.0, "pack_chunks": 0.0}
+    err = {"dest_histogram2d": 0.0, "pack_chunks": 0.0, "route_plan": 0.0,
+           "dest_budgets": 0.0}
     rng = np.random.RandomState(seed)
 
     def hist_case(label, dest, n_bins):
@@ -362,12 +382,14 @@ def phase_kernels_vs_plain(seed: int) -> dict:
             f"(max_abs_err {e})")
         del got, ref
 
-    hist_in, fields, idx, recv_rows, spec = first_write_inputs(seed)
-    hist_case("main path (write data plane)", hist_in, N_NODES + 1)
-    pack_case("main path (write send pack)", fields, idx)
-    packed = pack_chunks(fields, idx)
-    pack_case("main path (ragged receive view)", packed, recv_rows)
-    del packed
+    inp = first_write_inputs(seed)
+    spec = inp["spec"]
+    hist_case("main path (write data plane)", inp["hist_in"], N_NODES + 1)
+    planner_vs_plain(inp, rng, err)
+    pack_case("main path (write send pack)", inp["fields"], inp["idx"])
+    packed = pack_chunks(inp["fields"], inp["idx"])
+    pack_case("main path (ragged receive view)", packed, inp["recv_rows"])
+    del packed, inp
     torch.cuda.empty_cache()
     dev = torch.device(DEVICE)
     for shape, n_bins in (((1, 8), 5), ((16, 128), 32), ((4, 300), 4097),
@@ -387,6 +409,72 @@ def phase_kernels_vs_plain(seed: int) -> dict:
     log(f"[kernels] spec of the first write's data plane: total "
         f"{spec.total} columns, bmax {spec.bmax}")
     return err
+
+
+def planner_vs_plain(inp: dict, rng: np.random.RandomState,
+                     err: dict) -> None:
+    """``route_plan`` and ``dest_budgets`` against their plain versions,
+    bit for bit: the first write's data plane (its measured spec's table),
+    then the sweep of the CPU tests (N 1/8/32/64 × q 0/1/8/33/100, rows
+    all invalid, skewed rows, destinations outside [0, N); uniform budgets
+    {1, 3, q}, the measured ones, one below them, random ones) and
+    (32, 1024) at 256 nodes, (32, 100) at 2048 nodes, (3, 40) at 49,999."""
+    from repro_torch.kernels.chunk_router.chunk_router import (dest_budgets,
+                                                              route_plan)
+    from repro_torch.kernels.chunk_router.ref import (dest_budgets_ref,
+                                                      route_plan_ref)
+    dev = torch.device(DEVICE)
+    cases = 0
+
+    def plan_case(dest, valid, table, total):
+        got = route_plan(dest, valid, table, total=total)
+        torch.cuda.synchronize()
+        want = route_plan_ref(dest, valid, table, total=total)
+        for name, a, w in zip(("send_idx", "reply_idx", "overflow",
+                               "counts"), got, want):
+            err["route_plan"] = max(err["route_plan"], max_abs_err(a, w))
+            check(torch.equal(a, w), f"route_plan {name} differs at "
+                                     f"{tuple(dest.shape)}, N "
+                                     f"{table.shape[1]}, total {total}")
+
+    def budgets_case(dest, valid, n):
+        got = dest_budgets(dest, valid, n)
+        torch.cuda.synchronize()
+        want = dest_budgets_ref(dest, valid, n)
+        err["dest_budgets"] = max(err["dest_budgets"], max_abs_err(got, want))
+        check(torch.equal(got, want), f"dest_budgets differs at "
+                                      f"{tuple(dest.shape)}, N {n}")
+        return got.cpu().numpy()
+
+    budgets_case(inp["dest"], inp["valid"], N_NODES)
+    plan_case(inp["dest"], inp["valid"], inp["table"], inp["spec"].total)
+    log(f"[kernels] route_plan / dest_budgets main path (write data plane, "
+        f"(32, 8), N {N_NODES}, total {inp['spec'].total}): equal")
+    shapes = ([(n + 2, q, n) for n in (1, 8, 32, 64)
+               for q in (0, 1, 8, 33, 100)] +
+              [(32, 1024, 256), (32, 100, 2048), (3, 40, 49999)])
+    for L, q, n in shapes:
+        for skewed in (False, True):
+            dest = rng.randint(-1, n + 1, (L, q)).astype(np.int32)
+            if skewed:
+                dest[:, : 3 * q // 4] = rng.randint(0, min(n, 2), (L, 1))
+            valid = rng.rand(L, q) > 0.2
+            valid[0] = False
+            dest = torch.as_tensor(dest, device=dev)
+            valid = torch.as_tensor(valid, device=dev)
+            measured = budgets_case(dest, valid, n)
+            for b in ([np.full(n, b) for b in sorted({1, 3, q})] +
+                      [measured, np.maximum(measured - 1, 0),
+                       rng.randint(0, q + 2, n)]):
+                if n * int(b.max()) > 1 << 24:
+                    continue
+                table = torch.as_tensor(np.stack([b, np.cumsum(b) - b]).astype(
+                    np.int32), device=dev)
+                plan_case(dest, valid, table, int(b.sum()))
+                cases += 1
+    log(f"[kernels] route_plan: {cases} sweep plans, dest_budgets: "
+        f"{2 * len(shapes)} sweep specs, all equal (max_abs_err "
+        f"{err['route_plan']}, {err['dest_budgets']})")
 
 
 def embedding_leaf(gen: torch.Generator) -> torch.Tensor:
@@ -1178,21 +1266,42 @@ def phase_last_kernels(seed: int, counters, f32_counter,
 # ---------------------------------------------------------------------------
 # (c) the deployment through BBClient
 # ---------------------------------------------------------------------------
-def phase_deployment(seed: int, counters) -> dict:
-    from repro_torch.core.client import BBClient
-    client = BBClient(deployment_policy(), cap=CAP, words=WORDS, mcap=MCAP)
-    check(client.device.type == DEVICE, "client tables not on the card")
-    kind = client._select_kind(Q)
-    check(kind == "compacted", f"exchange auto picked {kind}, not compacted")
-    log(f"[deploy] N={N_NODES} cap={CAP} mcap={MCAP} words={WORDS} q={Q}; "
-        f"data table {client.state.data.numel() * 4 / 2 ** 30:.2f} GiB; "
-        f"exchange auto -> {kind}")
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+class PlannerCalls:
+    """Counts the planner's routing rounds (``_compact_plan_ragged`` with
+    q > 0, which the uniform ``_compact_plan`` also calls) and measured
+    specs (``plan_ragged_spec``, as the engine calls it) while active, by
+    wrapping the module functions; restores them on exit."""
+
+    def __init__(self):
+        from repro_torch.core import burst_buffer as bb
+        from repro_torch.core import exchange_plan as xp
+        self.rounds = self.specs = 0
+        self._targets = [(xp, "_compact_plan_ragged", "rounds"),
+                         (bb, "plan_ragged_spec", "specs")]
+        self._saved = []
+
+    def __enter__(self):
+        for mod, name, field in self._targets:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+
+            def counted(dest, *a, _fn=fn, _field=field, **k):
+                if _field == "specs" or dest.shape[1] > 0:
+                    setattr(self, _field, getattr(self, _field) + 1)
+                return _fn(dest, *a, **k)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def drive_deployment(client, gen: torch.Generator) -> list:
+    """The deployment's calls and checks: three fused writes, cross-node
+    two-phase reads and stats of each, create, remove; returns the writes'
+    (paths, chunk ids, request)."""
     batches = []
-    t0 = time.perf_counter()
     for step in range(N_WRITES):
         paths, cids = batch_paths(step)
         req = client.encode(paths, chunk_id=cids)
@@ -1230,10 +1339,42 @@ def phase_deployment(seed: int, counters) -> dict:
     check(not bool(found.any()), "removed files still found")
     found, _, _ = client.stat(batches[1][2])
     check(bool(found.all()), "remove touched another write's files")
-    torch.cuda.synchronize()
-    launches = {c.name: c.launches for c in counters}
+    return batches
+
+
+def phase_deployment(seed: int, counters, plan_counter,
+                     spec_counter) -> dict:
+    """``counters`` are every data-plane kernel's (each must launch);
+    ``plan_counter`` must launch exactly once a routing round and
+    ``spec_counter`` once a measured spec."""
+    from repro_torch.core.client import BBClient
+    client = BBClient(deployment_policy(), cap=CAP, words=WORDS, mcap=MCAP)
+    check(client.device.type == DEVICE, "client tables not on the card")
+    kind = client._select_kind(Q)
+    check(kind == "compacted", f"exchange auto picked {kind}, not compacted")
+    log(f"[deploy] N={N_NODES} cap={CAP} mcap={MCAP} words={WORDS} q={Q}; "
+        f"data table {client.state.data.numel() * 4 / 2 ** 30:.2f} GiB; "
+        f"exchange auto -> {kind}")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    with PlannerCalls() as planner:
+        t0 = time.perf_counter()
+        batches = drive_deployment(client, gen)
+        torch.cuda.synchronize()
+        launches = {c.name: c.launches for c in counters}
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
+    check(plan_counter.launches == planner.rounds,
+          f"{planner.rounds} routing rounds made {plan_counter.launches} "
+          f"{plan_counter.name} launches, not one each")
+    check(spec_counter.launches == planner.specs,
+          f"{planner.specs} measured specs made {spec_counter.launches} "
+          f"{spec_counter.name} launches, not one each")
+    log(f"[deploy] planner: {planner.rounds} routing rounds, one "
+        f"{plan_counter.name} launch each; {planner.specs} measured specs, "
+        f"one {spec_counter.name} launch each")
     log(f"[deploy] {N_WRITES} fused writes ({N_WRITES * N_NODES * Q} chunks, "
         f"{N_WRITES * N_NODES * Q} MiB), {N_WRITES} reads, stats, create, "
         f"remove: all checks hold in {time.perf_counter() - t0:.2f} s")
@@ -1241,6 +1382,29 @@ def phase_deployment(seed: int, counters) -> dict:
     log(f"[deploy] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return {"client": client, "batches": batches, "launches": launches}
+
+
+def phase_calls(seed: int) -> None:
+    """``--calls-only``: build the kernels, fill the deployment (its calls
+    and checks) and time and profile one write, read and stat of the last
+    write's batch; one JSON line ``{"calls": ...}``.  Uses only what the
+    earlier slices' package also has, so that the parent commit's tree can
+    be measured by this script in the same machine."""
+    from repro_torch import kernels
+    from repro_torch.core.client import BBClient
+    kernels.build(kernels.KERNELS)
+    client = BBClient(deployment_policy(), cap=CAP, words=WORDS, mcap=MCAP)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    req = drive_deployment(client, gen)[-1][2]
+    calls = {}
+    for name, fn in (("write", lambda: client.write(req)),
+                     ("read", lambda: client.read(req)),
+                     ("stat", lambda: client.stat(req))):
+        calls[name] = {"ms": host_ms(fn, 3)}
+    for name, st in profile_client_calls(client, req).items():
+        calls[name].update(st)
+    log(json.dumps({"calls": calls, "src": str(Path(__file__).resolve()
+                                                .parent)}))
 
 
 # ---------------------------------------------------------------------------
@@ -1420,35 +1584,115 @@ def bound_ms(nbytes: float, ops: float,
                                    else "operations")
 
 
+def launch_floor_fn():
+    """A launch of ``csrc/dest_histogram2d.cu``'s empty kernel, through
+    ctypes like the planner's kernels: the launch floor."""
+    from repro_torch import kernels
+    fn = kernels.load("dest_histogram2d").launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        err = fn(torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"launch_floor: CUDA error {err}")
+    return launch
+
+
+def planner_timings(inp: dict) -> dict:
+    """The planner's kernels at the write data plane's shape ((32, 8), 32
+    nodes, the measured spec): device time (profiler), the queued span
+    (CUDA events behind a sleep, launch gaps hidden), and the host's
+    launch rate through the wrapper; beside them the plain versions (the
+    parent's planner, moved), ``bincount`` for the counts-only entry, the
+    bytes bound and the launch floor (an empty kernel, queued the same
+    way)."""
+    from repro_torch.kernels.chunk_router.chunk_router import (
+        dest_budgets, dest_histogram2d, route_plan)
+    from repro_torch.kernels.chunk_router.ref import (dest_budgets_ref,
+                                                      dest_histogram2d_ref,
+                                                      route_plan_ref)
+    out = {}
+    dest, valid, table = inp["dest"], inp["valid"], inp["table"]
+    total = inp["spec"].total
+    L, q = dest.shape
+    n = N_NODES
+    empty = launch_floor_fn()
+    floor = dict(device=device_ms(empty, 50), queued=queued_span_ms(empty,
+                                                                    200))
+    log(f"[time] launch floor (an empty kernel): {floor['device']:.6f} ms "
+        f"device, {floor['queued']:.6f} ms queued")
+
+    def numbers(name, kernel, plain, nbytes, shape, library=None):
+        b, by = bound_ms(nbytes, L * q)
+        r = dict(ms=device_ms(kernel, 50, b), plain_ms=device_ms(plain, 50, b),
+                 library_ms=None if library is None else device_ms(library,
+                                                                   50, b),
+                 bound_ms=b, bound_by=by, floor_ms=floor,
+                 queued_ms=queued_span_ms(kernel, 200),
+                 host_ms=cuda_ms(kernel, 200), shape=shape)
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.6f}"
+        log(f"[time] {name} {shape}: kernel {r['ms']:.6f} ms device "
+            f"({r['ms'] / floor['device']:.2f}x the floor's), "
+            f"{r['queued_ms']:.6f} queued "
+            f"({r['queued_ms'] / floor['queued']:.2f}x), {r['host_ms']:.6f} "
+            f"back to back through the wrapper; plain {r['plain_ms']:.6f}; "
+            f"library {lib}; bound {b:.7f} ({by})")
+        out[name] = r
+
+    # the whole plan of one ragged round: one launch against the parent's
+    # ~35 operations (the plain version)
+    numbers("route_plan",
+            lambda: route_plan(dest, valid, table, total=total),
+            lambda: route_plan_ref(dest, valid, table, total=total),
+            L * q * 5 + table.numel() * 4 + L * (n + total + q + 1) * 4,
+            f"({L}, {q}), N {n}, total {total}")
+    numbers("dest_budgets", lambda: dest_budgets(dest, valid, n),
+            lambda: dest_budgets_ref(dest, valid, n), L * q * 5 + n * 4,
+            f"({L}, {q}) -> ({n},)")
+    hist_in = inp["hist_in"]
+    nb = n + 1
+    flat = torch.where((hist_in >= 0) & (hist_in < nb),
+                       hist_in + nb * torch.arange(L, device=DEVICE)[:, None],
+                       L * nb).reshape(-1)
+    numbers("dest_histogram2d", lambda: dest_histogram2d(hist_in, n_bins=nb),
+            lambda: dest_histogram2d_ref(hist_in, n_bins=nb),
+            L * q * 4 + L * nb * 4, f"({L}, {q}) -> ({L}, {nb})",
+            lambda: torch.bincount(flat, minlength=L * nb + 1))
+    return out
+
+
+def profile_plan_rounds(inp: dict) -> None:
+    """One ragged and one uniform routing round of the write data plane
+    under the profiler (their spec tables already on the card): each must
+    put exactly one operation on the card, ``route_plan``, and make no
+    host-to-device copy and no stream synchronisation."""
+    from repro_torch.core import exchange_plan as xp
+    dest, valid, spec = inp["dest"], inp["valid"], inp["spec"]
+    for label, fn in (
+            ("ragged", lambda: xp._compact_plan_ragged(dest, valid, N_NODES,
+                                                       spec)),
+            ("uniform", lambda: xp._compact_plan(dest, valid, N_NODES, Q))):
+        fn()                                   # the spec's table to the card
+        stats = call_profile(fn)
+        log(f"[profile] plan round ({label}): {stats['device_ops']} device "
+            f"operations {stats['ops']}, {stats['htod']} host-to-device "
+            f"copies, {stats['syncs']} stream syncs, {stats['launches']} "
+            f"kernel launches")
+        check(stats["htod"] == 0 and stats["syncs"] == 0,
+              f"a {label} plan round copies to the card or waits for it")
+        check(stats["device_ops"] == 1 and "route_plan" in
+              " ".join(stats["ops"]), f"a {label} plan round is not one "
+                                      f"route_plan launch: {stats['ops']}")
+
+
 def phase_timings(seed: int, deploy: dict) -> dict:
     from repro_torch.core import burst_buffer as bb
     from repro_torch.kernels.chunk_pack.chunk_pack import pack_chunks
     from repro_torch.kernels.chunk_pack.ref import pack_chunks_ref
-    from repro_torch.kernels.chunk_router.chunk_router import \
-        dest_histogram2d
-    from repro_torch.kernels.chunk_router.ref import dest_histogram2d_ref
-    out = {}
-    hist_in, fields, idx, recv_rows, spec = first_write_inputs(seed)
-
-    # dest_histogram2d at the write data plane's (32, 8) → 33 bins
-    L, q = hist_in.shape
-    nb = N_NODES + 1
-    flat = torch.where((hist_in >= 0) & (hist_in < nb),
-                       hist_in + nb * torch.arange(L, device=DEVICE)[:, None],
-                       L * nb).reshape(-1)
-    # launch-bound: device time per call, plus what back-to-back calls
-    # through the wrapper sustain (the host's launch rate)
-    b, by = bound_ms(L * q * 4 + L * nb * 4, L * q)
-    t_k = device_ms(lambda: dest_histogram2d(hist_in, n_bins=nb), 50, b)
-    t_p = device_ms(lambda: dest_histogram2d_ref(hist_in, n_bins=nb), 50, b)
-    t_l = device_ms(lambda: torch.bincount(flat, minlength=L * nb + 1), 50,
-                    b)
-    log(f"[time] dest_histogram2d back to back through the wrapper: "
-        f"{cuda_ms(lambda: dest_histogram2d(hist_in, n_bins=nb), 200):.4f} "
-        f"ms a call (host launch rate)")
-    out["dest_histogram2d"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                   bound_ms=b, bound_by=by,
-                                   shape=f"({L}, {q}) -> ({L}, {nb})")
+    inp = first_write_inputs(seed)
+    out = planner_timings(inp)
+    profile_plan_rounds(inp)
+    fields, idx, recv_rows = inp["fields"], inp["idx"], inp["recv_rows"]
+    del inp
 
     # pack_chunks at the write send pack and at the ragged receive view
     def pack_numbers(payload, ids, label):
@@ -1464,14 +1708,15 @@ def phase_timings(seed: int, deploy: dict) -> dict:
                     bound_by=by, shape=f"{label}: payload {tuple(payload.shape)}, "
                           f"{ids.numel()} rows out, {rows} gathered")
 
-    out["pack_chunks"] = pack_numbers(fields, idx, "write send pack")
+    packs = {"pack_chunks": pack_numbers(fields, idx, "write send pack")}
     torch.cuda.empty_cache()
     packed = pack_chunks(fields, idx)
-    out["pack_chunks_recv"] = pack_numbers(packed, recv_rows,
-                                           "ragged receive view")
+    packs["pack_chunks_recv"] = pack_numbers(packed, recv_rows,
+                                             "ragged receive view")
     del packed
     torch.cuda.empty_cache()
-    for name, r in out.items():
+    out.update(packs)
+    for name, r in packs.items():
         log(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
@@ -1521,23 +1766,31 @@ def phase_timings(seed: int, deploy: dict) -> dict:
         lambda: bb._broadcast_lookup(st, keys, miss, N_NODES), 3)
     log("[time] read stages: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in stages.items()))
-    for name, fn in (("write", lambda: client.write(req)),
-                     ("read", lambda: client.read(req)),
-                     ("stat", lambda: client.stat(req))):
-        profile_call(name, fn)
     out["client"] = dict(write_ms=t_w, read_ms=t_r, stat_ms=t_s,
-                         read_stages=stages)
+                         read_stages=stages,
+                         profiles=profile_client_calls(client, req))
     return out
 
 
-def profile_call(name: str, fn) -> None:
-    """One call under ``torch.profiler``: wall time, device busy time (sum
-    of kernel and copy times), idle share, launches, and the kernels that
-    take the most device time.  The profiler's own host overhead inflates
-    the wall time, so the idle share is an upper bound."""
+def profile_client_calls(client, req) -> dict:
+    """One write, read and stat of ``req`` under the profiler each."""
+    return {name: profile_call(name, fn) for name, fn in (
+        ("write", lambda: client.write(req)),
+        ("read", lambda: client.read(req)),
+        ("stat", lambda: client.stat(req)))}
+
+
+def call_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, ended by a
+    synchronize: wall ms, device busy ms (kernels, copies, memsets), the
+    device operations by name, kernel launches (runtime and driver launch
+    calls), host-to-device and device-to-host copies on the card, and the
+    host's syncs (``cudaStreamSynchronize`` and blocking ``cudaMemcpy``
+    calls: each blocking copy, ``.item()`` and ``.cpu()`` makes one; the
+    closing device synchronize is not counted).  A session that recorded no device work is taken again,
+    twice at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    # a session that recorded no device time is taken again, twice at most
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1548,21 +1801,46 @@ def profile_call(name: str, fn) -> None:
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
         dev = [e for e in events if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in dev) / 1e3
-        if busy > 0:
+        if dev:
             break
-    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
-    syncs = sum(e.count for e in events if e.key == "aten::nonzero" or
-                "Synchronize" in e.key)
-    check(busy > 0, f"profile of {name}: no device time recorded in three "
-                    f"sessions")
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"[profile] {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
-        f"idle share {max(0.0, 1 - busy / wall):.3f}, {launches} kernel "
-        f"launches, {syncs} host syncs (nonzero/synchronize)")
+
+    def count(pred, among=events):
+        return sum(e.count for e in among if pred(e.key))
+
+    return dict(
+        wall_ms=wall, dev=dev,
+        busy_ms=sum(e.self_device_time_total for e in dev) / 1e3,
+        ops={e.key: e.count for e in dev},
+        device_ops=sum(e.count for e in dev),
+        launches=count(lambda k: "LaunchKernel" in k),
+        htod=count(lambda k: "HtoD" in k, dev),
+        dtoh=count(lambda k: "DtoH" in k, dev),
+        syncs=count(lambda k: k in ("cudaStreamSynchronize", "cudaMemcpy")))
+
+
+def profile_call(name: str, fn) -> dict:
+    """One call under ``torch.profiler`` (``call_profile``): wall time,
+    device busy time, idle share, launches, host syncs and copies, and the
+    kernels that take the most device time.  The profiler's own host
+    overhead inflates the wall time, so the idle share is an upper
+    bound."""
+    st = call_profile(fn)
+    check(st["busy_ms"] > 0, f"profile of {name}: no device time recorded "
+                             f"in three sessions")
+    st["idle"] = max(0.0, 1 - st["busy_ms"] / st["wall_ms"])
+    top = sorted(st.pop("dev"), key=lambda e: -e.self_device_time_total)[:5]
+    log(f"[profile] {name}: wall {st['wall_ms']:.3f} ms, device busy "
+        f"{st['busy_ms']:.3f} ms, idle share {st['idle']:.3f}, "
+        f"{st['launches']} kernel launches, {st['device_ops']} device "
+        f"operations, {st['syncs']} host syncs (stream syncs, blocking "
+        f"copies), "
+        f"{st['htod']} host-to-device and {st['dtoh']} device-to-host "
+        f"copies")
     for e in top:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+    del st["ops"]
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -1879,20 +2157,26 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random payloads (default 0)")
+    parser.add_argument("--calls-only", action="store_true",
+                        help="only fill the deployment and profile one "
+                             "write, read and stat (no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if args.calls_only:
+        phase_calls(args.seed)
+        return 0
     from repro_torch import kernels
     from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS
     from repro_torch.kernels.chunk_router.chunk_router import (
-        DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS_SEGMENTED)
+        DEST_BUDGETS, DEST_HISTOGRAM, ROUTE_CHUNKS_SEGMENTED, ROUTE_PLAN)
     from repro_torch.kernels.fletcher.fletcher import (FLETCHER,
                                                        FLETCHER_SEGMENTED)
     from repro_torch.kernels.flash_attention.flash_attention import (
         FLASH_ATTENTION, FLASH_ATTENTION_F32, FLASH_ATTENTION_WIDE)
-    counters = (DEST_HISTOGRAM2D, PACK_CHUNKS)
+    counters = (ROUTE_PLAN, DEST_BUDGETS, PACK_CHUNKS)
     ckpt_counters = (FLETCHER_SEGMENTED, ROUTE_CHUNKS_SEGMENTED)
     last_counters = (FLASH_ATTENTION, DEST_HISTOGRAM)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -1909,7 +2193,8 @@ def main() -> int:
         err.update(last["err"])
         torch.cuda.empty_cache()
         phase = "deployment"
-        deploy = phase_deployment(args.seed, counters)
+        deploy = phase_deployment(args.seed, counters, ROUTE_PLAN,
+                                  DEST_BUDGETS)
         phase = "seed digests"
         phase_seed_digests()
         phase = "timings"
@@ -1941,7 +2226,9 @@ def main() -> int:
         return 1
     rows = []
     for c, src, replaces in (
-            (DEST_HISTOGRAM2D, "src/repro_torch/csrc/dest_histogram2d.cu",
+            (ROUTE_PLAN, "src/repro_torch/csrc/dest_histogram2d.cu",
+             "src/repro/kernels/chunk_router/chunk_router.py:133"),
+            (DEST_BUDGETS, "src/repro_torch/csrc/dest_histogram2d.cu",
              "src/repro/kernels/chunk_router/chunk_router.py:133"),
             (PACK_CHUNKS, "src/repro_torch/csrc/pack_chunks.cu",
              "src/repro/kernels/chunk_pack/chunk_pack.py:42"),

@@ -23,10 +23,13 @@ exchange is a permutation of rows between the (source, destination) axes.
   metadata planes as one round with no reply leg.
 
 Every send-order gather goes through ``gather_rows_batched`` (the
-``pack_chunks`` kernel on the card), and every per-row destination count
-through ``histogram_rows2d`` (the ``dest_histogram2d`` kernel).  The ragged
-receive views are row permutations of the packed send buffer with zero
-pads, which is again the ``pack_chunks`` gather.
+``pack_chunks`` kernel on the card).  Every round's routing plan is one
+``route_plan`` call, and every measured spec one ``dest_budgets`` call
+(kernels of ``csrc/dest_histogram2d.cu`` on the card).  The ragged receive
+views are row permutations of the packed send buffer with zero pads, which
+is again the ``pack_chunks`` gather.  A spec's static tables (budgets and
+offsets, receive rows, reply index) are copied to the card once per spec
+(``spec_tables``), so a round makes no host-to-device copy.
 
 The mesh plans (``MeshRaggedSpec``, ``PermuteExecutor``) and the modeled
 footprint are not ported yet.
@@ -45,7 +48,7 @@ import torch
 from repro_torch.core.layouts import LayoutMode
 from repro_torch.core.policy import LayoutPolicy, as_policy
 from repro_torch.kernels.chunk_pack.ops import gather_rows, gather_rows_batched
-from repro_torch.kernels.chunk_router.ops import histogram_rows2d
+from repro_torch.kernels.chunk_router.ops import dest_budgets, route_plan
 
 #: modes whose writes structurally concentrate a whole batch on one node
 LOCAL_WRITE_MODES = frozenset({LayoutMode.NODE_LOCAL, LayoutMode.HYBRID})
@@ -168,10 +171,11 @@ def _quantize(budgets: np.ndarray, q: int, align: int,
     return out
 
 
-def _sentinel_dest(dest: torch.Tensor, valid: torch.Tensor,
-                   n_nodes: int) -> torch.Tensor:
-    """Destinations with invalid slots moved to the extra bin ``n_nodes``."""
-    return torch.where(valid, dest.to(I32), n_nodes).to(I32).contiguous()
+def _routing_inputs(dest: torch.Tensor, valid: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, q) destinations and validity as the routing kernels take them:
+    contiguous int32 and bool (no copy where they already are)."""
+    return dest.to(I32).contiguous(), valid.to(torch.bool).contiguous()
 
 
 def plan_ragged_spec(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int,
@@ -179,17 +183,16 @@ def plan_ragged_spec(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int,
                      floor: Optional[np.ndarray] = None) -> RaggedSpec:
     """Measure per-destination traffic and build a lossless ``RaggedSpec``.
 
-    Budget ``d`` is the per-row ``dest_histogram2d`` maximum over all source
-    rows, rounded up to a multiple of ``align`` (clamped to the row length
-    q; zero-traffic destinations stay 0).  ``floor`` raises budgets to a
-    running minimum so a steady workload converges to one spec.  Reads the
-    counts back to the host.
+    Budget ``d`` is the per-row count maximum over all source rows (one
+    ``dest_budgets`` call), rounded up to a multiple of ``align`` (clamped
+    to the row length q; zero-traffic destinations stay 0).  ``floor``
+    raises budgets to a running minimum so a steady workload converges to
+    one spec.  Reads the budgets back to the host.
     """
-    d = _sentinel_dest(dest, valid, n_nodes)
-    q = d.shape[1]
-    counts = histogram_rows2d(d, n_bins=n_nodes + 1)[:, :n_nodes]
-    budgets = (counts.max(dim=0).values.cpu().numpy().astype(np.int64)
-               if counts.shape[0] else np.zeros(n_nodes, np.int64))
+    dest, valid = _routing_inputs(dest, valid)
+    q = dest.shape[1]
+    budgets = dest_budgets(dest, valid, n_nodes).cpu().numpy().astype(
+        np.int64)
     budgets = _quantize(budgets, q, align, floor)
     return RaggedSpec(tuple(int(b) for b in budgets))
 
@@ -285,66 +288,20 @@ class ExchangePlan:
     overflow: Optional[torch.Tensor] = None
 
 
-def _sorted_routing(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int):
-    """Stable destination sort of each row plus its destination histogram.
-
-    Returns (order, sorted dest, counts (L, n_nodes), exclusive start).
-    The sort must be stable: requests of one (source, destination) pair
-    keep their slot order, so the receiver appends in the dense path's
-    order.
-    """
-    d = _sentinel_dest(dest, valid, n_nodes)
-    order = torch.argsort(d, dim=1, stable=True)
-    sd = torch.gather(d, 1, order)
-    counts = histogram_rows2d(d, n_bins=n_nodes + 1)[:, :n_nodes]
-    start = torch.cumsum(counts, dim=1, dtype=I32) - counts
-    return order, sd, counts, start
-
-
-def _reply_index(order: torch.Tensor, sd: torch.Tensor, start: torch.Tensor,
-                 n_nodes: int, cap: torch.Tensor, base: torch.Tensor
-                 ) -> torch.Tensor:
-    """Reply column of each request: ``base[d] + rank`` when the request's
-    rank within its destination run is below ``cap[d]``, else -1; scattered
-    back from sorted to slot order."""
-    L, q = sd.shape
-    startx = torch.cat([start, start.new_zeros((L, 1))], dim=1)
-    rank = torch.arange(q, dtype=I32, device=sd.device)[None, :] - \
-        torch.gather(startx, 1, sd.long())
-    sdl = sd.long()
-    slot = torch.where((sd < n_nodes) & (rank < cap[sdl]), base[sdl] + rank,
-                       -1).to(I32)
-    return torch.zeros((L, q), dtype=I32, device=sd.device).scatter_(
-        1, order, slot)
-
-
 def _compact_plan(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int,
                   budget: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sort-based routing plan for one uniform-budget round.
+    """Routing plan for one uniform-budget round: the ragged plan of budget
+    B and offset d·B for every destination d.
 
     dest/valid: (L, q).  Returns send_idx (L, n_nodes, budget) int32 (-1 for
     empty slots), reply_idx (L, q) int32 into the flat (n_nodes·budget)
     reply buffer (-1 for invalid/overflowed requests) and overflow (L,).
     """
-    L, q = dest.shape
-    dev = dest.device
-    if q == 0:
-        return (torch.full((L, n_nodes, budget), -1, dtype=I32, device=dev),
-                torch.zeros((L, 0), dtype=I32, device=dev),
-                torch.zeros(L, dtype=I32, device=dev))
-    order, sd, counts, start = _sorted_routing(dest, valid, n_nodes)
-    take = counts.clamp(max=budget)
-    b = torch.arange(budget, dtype=I32, device=dev)
-    pos = (start[:, :, None] + b[None, None, :]).clamp(0, q - 1)
-    src = torch.gather(order, 1, pos.reshape(L, -1).long()).reshape(
-        L, n_nodes, budget).to(I32)
-    send_idx = torch.where(b[None, None, :] < take[:, :, None], src, -1)
-    overflow = (counts - take).sum(dim=1, dtype=I32)
-    nodes = torch.arange(n_nodes + 1, dtype=I32, device=dev)
-    cap = torch.full((n_nodes + 1,), budget, dtype=I32, device=dev)
-    reply_idx = _reply_index(order, sd, start, n_nodes, cap, nodes * budget)
-    return send_idx.to(I32), reply_idx, overflow
+    send_idx, reply_idx, overflow = _compact_plan_ragged(
+        dest, valid, n_nodes, _uniform_spec(n_nodes, budget))
+    return (send_idx.view(dest.shape[0], n_nodes, budget), reply_idx,
+            overflow)
 
 
 def _compact_gather(x: torch.Tensor, send_idx: torch.Tensor) -> torch.Tensor:
@@ -386,10 +343,13 @@ def compact_collect(reply_idx: torch.Tensor, reply: torch.Tensor,
 def _compact_plan_ragged(dest: torch.Tensor, valid: torch.Tensor,
                          n_nodes: int, spec: RaggedSpec
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Ragged twin of ``_compact_plan``: per-destination segment widths.
+    """Routing plan for one round of per-destination segment widths: one
+    ``route_plan`` call on the spec's table.
 
     Returns (send_idx (L, Σbᵢ), reply_idx (L, q), overflow (L,)); overflow
-    is zero when ``spec`` was measured on the same dest/valid.
+    is zero when ``spec`` was measured on the same dest/valid.  Requests of
+    one (source, destination) pair keep their slot order (the reference's
+    stable sort), so the receiver appends in the dense path's order.
     """
     L, q = dest.shape
     dev = dest.device
@@ -397,36 +357,23 @@ def _compact_plan_ragged(dest: torch.Tensor, valid: torch.Tensor,
         return (torch.full((L, spec.total), -1, dtype=I32, device=dev),
                 torch.zeros((L, 0), dtype=I32, device=dev),
                 torch.zeros(L, dtype=I32, device=dev))
-    order, sd, counts, start = _sorted_routing(dest, valid, n_nodes)
-    if spec.total:
-        dcol = torch.as_tensor(spec.dcol, device=dev).long()
-        jcol = torch.as_tensor(spec.jcol, device=dev)
-        pos = (start[:, dcol] + jcol[None, :]).clamp(0, q - 1)
-        src = torch.gather(order, 1, pos.long()).to(I32)
-        send_idx = torch.where(jcol[None, :] < counts[:, dcol], src, -1)
-    else:
-        send_idx = torch.zeros((L, 0), dtype=I32, device=dev)
-    b_arr = torch.as_tensor(np.asarray(spec.budgets + (0,), np.int32),
-                            device=dev)
-    off_arr = torch.as_tensor(np.concatenate([spec.offsets, [0]]).astype(
-        np.int32), device=dev)
-    take = torch.minimum(counts, b_arr[None, :n_nodes])
-    overflow = (counts - take).sum(dim=1, dtype=I32)
-    reply_idx = _reply_index(order, sd, start, n_nodes, b_arr, off_arr)
-    return send_idx.to(I32), reply_idx, overflow
+    send_idx, reply_idx, overflow, _ = route_plan(
+        *_routing_inputs(dest, valid), spec_tables(spec, dev).table,
+        total=spec.total)
+    return send_idx, reply_idx, overflow
 
 
-def _take_rows(packed: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
-    """(L, S, F) packed send buffer × (N, M) static flat row pointers
-    (-1 → zero row) → (N, M, F) receive view, through the pack kernel."""
+def _take_rows(packed: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(L, S, F) packed send buffer × (N, M) flat row pointers on its
+    device (-1 → zero row) → (N, M, F) receive view, through the pack
+    kernel."""
     L, S = packed.shape[:2]
     rest = tuple(packed.shape[2:])
-    idx = torch.as_tensor(rows.reshape(-1), device=packed.device)
-    out = gather_rows(packed.reshape(L * S, math.prod(rest)), idx)
+    out = gather_rows(packed.reshape(L * S, math.prod(rest)),
+                      rows.reshape(-1))
     return out.reshape(tuple(rows.shape) + rest)
 
 
-@functools.lru_cache(maxsize=64)
 def _ragged_recv_rows(spec: RaggedSpec, n_src: int) -> np.ndarray:
     """(N, n_src·bmax) flat packed row feeding receive slot (d, s·bmax + j):
     ``s·Σb + recv_cols[d·bmax + j]``, or -1 for a pad slot."""
@@ -434,6 +381,61 @@ def _ragged_recv_rows(spec: RaggedSpec, n_src: int) -> np.ndarray:
     src = np.arange(n_src, dtype=np.int64)[None, :, None] * spec.total
     rows = np.where(col[:, None, :] >= 0, src + col[:, None, :], -1)
     return rows.reshape(spec.n_nodes, n_src * spec.bmax).astype(np.int32)
+
+
+def _reply_rows(spec: RaggedSpec) -> np.ndarray:
+    """(N·Σb,) row of the flat (N·N·bmax) padded reply view feeding packed
+    reply column c of source s: ``dcol[c]·N·bmax + s·bmax + jcol[c]``."""
+    n, M = spec.n_nodes, spec.n_nodes * spec.bmax
+    src = np.arange(n, dtype=np.int64)[:, None]
+    flat = spec.dcol[None, :].astype(np.int64) * M + src * spec.bmax \
+        + spec.jcol[None, :]
+    return flat.reshape(-1)
+
+
+@functools.lru_cache(maxsize=64)
+def _uniform_spec(n_nodes: int, budget: int) -> RaggedSpec:
+    """The uniform round's budgets as a spec: B for every destination."""
+    return RaggedSpec((budget,) * n_nodes)
+
+
+class SpecTables:
+    """A spec's static tables on one device, each copied there once, at
+    first use (``spec_tables`` keeps one per (spec, device)).
+
+    * ``table``: (2, N) int32 budgets and segment offsets, ``route_plan``'s
+      input (for a uniform round, ``_uniform_spec``'s: B and d·B);
+    * ``recv_rows``: (N, N·bmax) int32 packed rows of the ragged receive
+      view (``_ragged_recv_rows``, N sources);
+    * ``reply_rows``: (N·Σb,) int64 rows of the padded reply view that
+      ``ragged_reply_exchange`` takes (``_reply_rows``).
+    """
+
+    def __init__(self, spec: RaggedSpec, device: torch.device):
+        self.spec, self.device = spec, device
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    @cached_property
+    def table(self) -> torch.Tensor:
+        spec = self.spec
+        return self._put(np.stack([np.asarray(spec.budgets, np.int32),
+                                   spec.offsets]).reshape(2, spec.n_nodes))
+
+    @cached_property
+    def recv_rows(self) -> torch.Tensor:
+        return self._put(_ragged_recv_rows(self.spec, self.spec.n_nodes))
+
+    @cached_property
+    def reply_rows(self) -> torch.Tensor:
+        return self._put(_reply_rows(self.spec))
+
+
+@functools.lru_cache(maxsize=128)
+def spec_tables(spec: RaggedSpec, device: torch.device) -> SpecTables:
+    """The static tables of ``spec`` on ``device`` (one object per pair)."""
+    return SpecTables(spec, device)
 
 
 def ragged_exchange(x: torch.Tensor, spec: RaggedSpec,
@@ -447,7 +449,10 @@ def ragged_exchange(x: torch.Tensor, spec: RaggedSpec,
     """
     if spec.bmax == 0:
         return x.new_zeros((n_nodes, 0) + tuple(x.shape[2:]))
-    return _take_rows(x, _ragged_recv_rows(spec, x.shape[0]))
+    if x.shape[0] != spec.n_nodes:
+        raise ValueError(f"ragged_exchange: {x.shape[0]} source rows, "
+                         f"expected one per node ({spec.n_nodes})")
+    return _take_rows(x, spec_tables(spec, x.device).recv_rows)
 
 
 def ragged_reply_exchange(reply: torch.Tensor, spec: RaggedSpec,
@@ -459,11 +464,8 @@ def ragged_reply_exchange(reply: torch.Tensor, spec: RaggedSpec,
     if spec.total == 0:
         return reply.new_zeros((n_nodes, 0) + rest)
     M = n_nodes * spec.bmax
-    dcol = torch.as_tensor(spec.dcol, device=reply.device).long()
-    jcol = torch.as_tensor(spec.jcol, device=reply.device).long()
-    src = torch.arange(n_nodes, device=reply.device)[:, None]
-    flat = dcol[None, :] * M + src * spec.bmax + jcol[None, :]
-    out = reply.reshape((n_nodes * M,) + rest).index_select(0, flat.reshape(-1))
+    out = reply.reshape((n_nodes * M,) + rest).index_select(
+        0, spec_tables(spec, reply.device).reply_rows)
     return out.reshape((n_nodes, spec.total) + rest)
 
 
@@ -647,10 +649,12 @@ def _fused_recv_cols(spec_d: RaggedSpec, spec_m: RaggedSpec,
 
 
 @functools.lru_cache(maxsize=64)
-def _fused_plane_rows(spec_d: RaggedSpec, spec_m: RaggedSpec
-                      ) -> Tuple[np.ndarray, np.ndarray]:
+def _fused_plane_rows(spec_d: RaggedSpec, spec_m: RaggedSpec,
+                      device: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each plane's receive view as flat rows of that plane's own packed
-    buffer, composed through the fused buffer's maps.
+    buffer, composed through the fused buffer's maps, on ``device`` (copied
+    there once per pair of specs).
 
     Fused receive column ``r`` of receiver ``i`` holds fused packed column
     ``fused.recv_cols[i·bf + r mod bf]`` of source ``r div bf``, which holds
@@ -676,8 +680,9 @@ def _fused_plane_rows(spec_d: RaggedSpec, spec_m: RaggedSpec
         col = pack[np.where(ok, p, 0)] - lo
         return np.where(ok, (c // bf) * width + col, -1).astype(np.int32)
 
-    return (plane(cols_d, 0, spec_d.total),
-            plane(cols_m, spec_d.total, spec_m.total))
+    return (torch.as_tensor(plane(cols_d, 0, spec_d.total), device=device),
+            torch.as_tensor(plane(cols_m, spec_d.total, spec_m.total),
+                            device=device))
 
 
 def fused_write_plan(policy, q: int, config: ExchangeConfig
@@ -723,7 +728,8 @@ def fused_send(ex_d: Executor, plan_d: ExchangePlan, fields_d: torch.Tensor,
     """
     if isinstance(ex_d, UniformExecutor):
         return (*ex_d.send(plan_d, fields_d), *ex_m.send(plan_m, fields_m))
-    rows_d, rows_m = _fused_plane_rows(ex_d.spec, ex_m.spec)
+    rows_d, rows_m = _fused_plane_rows(ex_d.spec, ex_m.spec,
+                                       fields_d.device)
     rd = _take_rows(gather_rows_batched(fields_d, plan_d.send_idx), rows_d)
     rm = _take_rows(gather_rows_batched(fields_m, plan_m.send_idx), rows_m)
     return (*_split(rd), *_split(rm))

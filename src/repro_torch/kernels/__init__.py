@@ -11,8 +11,11 @@ plain version.
 
 Kernels (one subpackage each, mirroring ``repro.kernels``):
 
-* ``chunk_router`` — ``dest_histogram2d``: per-row destination histogram of
-  the exchange planner; ``dest_histogram``: destination histogram of one
+* ``chunk_router`` — ``dest_histogram2d`` (one source, three entry points,
+  one warp a row): ``route_plan``, a whole exchange round's routing plan in
+  one launch; ``dest_budgets``, a ragged spec's per-destination budgets in
+  one launch; ``dest_histogram2d``, the per-row destination histogram;
+  ``dest_histogram``: destination histogram of one
   vector (``histogram_rows``; one thread-block cluster, one launch, up to
   131,072 values); ``route_chunks``: per-chunk destinations (and a
   destination histogram) of one vector of descriptors, and
@@ -31,7 +34,13 @@ Kernels (one subpackage each, mirroring ``repro.kernels``):
 
 Each subpackage holds ``<name>.py`` (the CUDA wrapper and its launch
 count), ``ops.py`` (dispatch: the kernel for CUDA tensors, the plain
-version for CPU tensors) and ``ref.py`` (the plain PyTorch version).
+version for CPU tensors) and ``ref.py`` (the plain PyTorch version).  The
+plain versions are held against the JAX package on the CPU
+(``tests/test_torch_kernels.py``; the planner's ``route_plan`` and
+``dest_budgets`` also through ``tests/test_torch_exchange_plan.py``, and
+``route_plan``'s warp algorithm by a numpy model of it), the kernels
+against their plain versions on a card (``tests/test_torch_cuda.py``,
+marker ``cuda``: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``).
 """
 from __future__ import annotations
 

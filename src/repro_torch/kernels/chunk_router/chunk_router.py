@@ -1,11 +1,15 @@
-"""CUDA wrappers of the routing kernels: the destination histograms of one
-vector (``csrc/dest_histogram.cu``) and per row (``csrc/dest_histogram2d.cu``)
-and batched chunk routing (``csrc/route_chunks.cu``: one vector of
-descriptors, or every chunk of a checkpoint from its leaf table).
+"""CUDA wrappers of the routing kernels: the destination histogram of one
+vector (``csrc/dest_histogram.cu``); the exchange planner's per-row kernels
+(``csrc/dest_histogram2d.cu``: the per-row histogram, a whole routing plan,
+a ragged spec's budgets); and batched chunk routing
+(``csrc/route_chunks.cu``: one vector of descriptors, or every chunk of a
+checkpoint from its leaf table).
 
-They replace ``dest_histogram_kernel``, ``dest_histogram2d_kernel`` and
-``route_chunks_kernel`` of ``repro.kernels.chunk_router.chunk_router``; each
-source file's header says what bounds it and how it is built.
+They replace ``dest_histogram_kernel``, ``dest_histogram2d_kernel`` (with
+the plan the reference's ``_compact_plan`` and ``_compact_plan_ragged`` build
+around it) and ``route_chunks_kernel`` of
+``repro.kernels.chunk_router.chunk_router``; each source file's header says
+what bounds it and how it is built.
 """
 from __future__ import annotations
 
@@ -51,6 +55,8 @@ DEST_HISTOGRAM2D = CudaKernel(
     "dest_histogram2d",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_int])
+#: the most bins (destinations + 1) a row's shared-memory counters take
+MAX_BINS = 50000
 
 
 def dest_histogram2d(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
@@ -60,8 +66,8 @@ def dest_histogram2d(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     other dtypes or non-contiguous input.
     """
     check_cuda("dest", dest, (torch.int32,), 2)
-    if n_bins < 0 or n_bins > 50000:
-        raise ValueError(f"n_bins must lie in [0, 50000], got {n_bins}")
+    if n_bins < 0 or n_bins > MAX_BINS:
+        raise ValueError(f"n_bins must lie in [0, {MAX_BINS}], got {n_bins}")
     L, q = dest.shape
     if q >= 2 ** 31 or L >= 2 ** 31:
         raise ValueError(f"dest shape {tuple(dest.shape)} too large")
@@ -70,6 +76,84 @@ def dest_histogram2d(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
         return counts
     DEST_HISTOGRAM2D.launch(dest.data_ptr(), counts.data_ptr(), L, q, n_bins)
     return counts
+
+
+def _check_routing(dest: torch.Tensor, valid: torch.Tensor,
+                   n_nodes: int) -> None:
+    check_cuda("dest", dest, (torch.int32,), 2)
+    check_cuda("valid", valid, (torch.bool,), 2, dest.device)
+    if valid.shape != dest.shape:
+        raise ValueError(f"valid {tuple(valid.shape)} and dest "
+                         f"{tuple(dest.shape)} differ in shape")
+    if not 1 <= n_nodes < MAX_BINS:
+        raise ValueError(f"n_nodes must lie in [1, {MAX_BINS - 1}], got "
+                         f"{n_nodes}")
+    if dest.shape[0] >= 2 ** 31 or dest.shape[1] >= 2 ** 31:
+        raise ValueError(f"dest shape {tuple(dest.shape)} too large")
+
+
+ROUTE_PLAN = CudaKernel(
+    "route_plan",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_longlong], source="dest_histogram2d")
+
+
+def route_plan(dest: torch.Tensor, valid: torch.Tensor, table: torch.Tensor,
+               *, total: int):
+    """One exchange round's routing plan, one launch (kernel).
+
+    dest (L, q) int32 and valid (L, q) bool on the card; table (2, N)
+    int32 on the same card: per-destination budgets, then the offsets of
+    their segments in a send row of ``total`` columns.  Returns
+    (send_idx (L, total), reply_idx (L, q), overflow (L,), counts (L, N)),
+    all int32: slot k of destination d's segment holds the request of
+    rank k there (rank = earlier valid requests of the row to d) or -1
+    past min(count, budget); a request's reply column is its send column,
+    or -1 when it is invalid, routed outside [0, N) or past the budget;
+    overflow counts those past the budget.  Raises on CPU tensors, other
+    dtypes, mismatched shapes or non-contiguous input.
+    """
+    check_cuda("table", table, (torch.int32,), 2)
+    if table.shape[0] != 2:
+        raise ValueError(f"table must be (2, N), got {tuple(table.shape)}")
+    n = table.shape[1]
+    _check_routing(dest, valid, n)
+    if table.device != dest.device:
+        raise ValueError(f"table is on {table.device}, expected "
+                         f"{dest.device}")
+    if not 0 <= total < 2 ** 31:
+        raise ValueError(f"total must lie in [0, 2^31), got {total}")
+    L, q = dest.shape
+    dev = dest.device
+    send_idx = torch.empty((L, total), dtype=torch.int32, device=dev)
+    reply_idx = torch.empty((L, q), dtype=torch.int32, device=dev)
+    overflow = torch.empty(L, dtype=torch.int32, device=dev)
+    counts = torch.empty((L, n), dtype=torch.int32, device=dev)
+    if L:
+        ROUTE_PLAN.launch(dest.data_ptr(), valid.data_ptr(),
+                          table.data_ptr(), counts.data_ptr(),
+                          send_idx.data_ptr(), reply_idx.data_ptr(),
+                          overflow.data_ptr(), L, q, n, total)
+    return send_idx, reply_idx, overflow, counts
+
+
+DEST_BUDGETS = CudaKernel(
+    "dest_budgets",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3, source="dest_histogram2d")
+
+
+def dest_budgets(dest: torch.Tensor, valid: torch.Tensor,
+                 n_nodes: int) -> torch.Tensor:
+    """(L, q) int32 destinations and bool validity on the card → (n_nodes,)
+    int32: each destination's largest per-row count of valid requests, one
+    launch (kernel).  Raises on CPU tensors, other dtypes, mismatched
+    shapes or non-contiguous input."""
+    _check_routing(dest, valid, n_nodes)
+    budgets = torch.empty(n_nodes, dtype=torch.int32, device=dest.device)
+    L, q = dest.shape
+    DEST_BUDGETS.launch(dest.data_ptr(), valid.data_ptr(), budgets.data_ptr(),
+                        L, q, n_nodes)
+    return budgets
 
 
 ROUTE_CHUNKS = CudaKernel(

@@ -10,10 +10,12 @@ import torch
 from repro_torch.kernels.chunk_router import chunk_router as cuda
 from repro_torch.kernels.chunk_router.chunk_router import (  # noqa: F401
     dest_histogram, dest_histogram2d)
-from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
+from repro_torch.kernels.chunk_router.ref import (dest_budgets_ref,
+                                                  dest_histogram2d_ref,
                                                   dest_histogram_ref,
                                                   route_chunks_ref,
-                                                  route_chunks_segmented_ref)
+                                                  route_chunks_segmented_ref,
+                                                  route_plan_ref)
 
 
 def histogram_rows(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
@@ -34,15 +36,49 @@ def histogram_rows2d(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     """Per-(row, destination) counts: (L, q) int32 → (L, n_bins) int32.
 
     A CUDA tensor goes through the ``dest_histogram2d`` kernel (or raises);
-    a CPU tensor through the bit-identical plain version.  The exchange
-    planner calls this once per round, and the client on the measured
-    destinations of a call to size its ragged budgets.
+    a CPU tensor through the bit-identical plain version.  The client
+    calls it to bound a uniform round's carry (``_carry_hint``); the
+    planner's rounds and specs take ``route_plan`` and ``dest_budgets``.
     """
     if dest.is_cuda:
         return dest_histogram2d(dest, n_bins=n_bins)
     if dest.device.type == "cpu":
         return dest_histogram2d_ref(dest, n_bins=n_bins)
     raise ValueError(f"histogram_rows2d: unsupported device {dest.device}")
+
+
+def route_plan(dest: torch.Tensor, valid: torch.Tensor, table: torch.Tensor,
+               *, total: int):
+    """One exchange round's routing plan: (L, q) int32 destinations and
+    bool validity, a (2, N) int32 budget/offset table on the same device →
+    (send_idx (L, total), reply_idx (L, q), overflow (L,), counts (L, N))
+    int32.
+
+    CUDA tensors go through the ``route_plan`` kernel, one launch (or
+    raise); CPU tensors through the bit-identical plain version.  The
+    exchange planner calls this once per round, uniform or ragged.
+    """
+    if dest.is_cuda:
+        return cuda.route_plan(dest, valid, table, total=total)
+    if dest.device.type == "cpu":
+        return route_plan_ref(dest, valid, table, total=total)
+    raise ValueError(f"route_plan: unsupported device {dest.device}")
+
+
+def dest_budgets(dest: torch.Tensor, valid: torch.Tensor,
+                 n_nodes: int) -> torch.Tensor:
+    """Each destination's largest per-row count of valid requests:
+    (L, q) int32 and bool → (n_nodes,) int32.
+
+    CUDA tensors go through the ``dest_budgets`` kernel, one launch (or
+    raise); CPU tensors through the bit-identical plain version.  The
+    planner measures a ragged spec with it.
+    """
+    if dest.is_cuda:
+        return cuda.dest_budgets(dest, valid, n_nodes)
+    if dest.device.type == "cpu":
+        return dest_budgets_ref(dest, valid, n_nodes)
+    raise ValueError(f"dest_budgets: unsupported device {dest.device}")
 
 
 def route_chunks(path_hash: torch.Tensor, chunk_id: torch.Tensor,

@@ -25,6 +25,70 @@ def dest_histogram2d_ref(dest: torch.Tensor, *, n_bins: int) -> torch.Tensor:
     return (dest[..., None] == bins).sum(dim=1, dtype=torch.int32)
 
 
+def _sentinel_dest(dest: torch.Tensor, valid: torch.Tensor,
+                   n_nodes: int) -> torch.Tensor:
+    """Destinations with invalid slots, and slots routed outside
+    [0, n_nodes), moved to the sentinel bin ``n_nodes``."""
+    keep = valid & (dest >= 0) & (dest < n_nodes)
+    return torch.where(keep, dest, n_nodes).to(torch.int32)
+
+
+def route_plan_ref(dest: torch.Tensor, valid: torch.Tensor,
+                   table: torch.Tensor, *, total: int):
+    """Plain version of ``route_plan``: (L, q) destinations and validity,
+    (2, N) budget/offset table → (send_idx (L, total), reply_idx (L, q),
+    overflow (L,), counts (L, N)) int32.
+
+    The reference planner's stable destination sort: sorted position p of
+    a row holds request ``order[p]``; its rank in its destination's run is
+    p − start[d], with start the exclusive cumsum of the row's counts.
+    Send column ``offset[d] + k`` takes the request of rank k while
+    k < counts[d] (budget columns past it: -1); a request's reply column
+    is ``offset[d] + rank`` while rank < budget[d], else -1.
+    """
+    n = table.shape[1]
+    L, q = dest.shape
+    dev = dest.device
+    budget, offset = table.to(torch.int64).unbind(0)
+    d = _sentinel_dest(dest, valid, n)
+    order = torch.argsort(d, dim=1, stable=True)
+    sd = torch.gather(d, 1, order).long()
+    counts = dest_histogram2d_ref(d, n_bins=n)
+    start = torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
+    if q:
+        dcol = torch.repeat_interleave(torch.arange(n, device=dev), budget,
+                                       output_size=total)
+        jcol = torch.arange(total, device=dev) - offset[dcol]
+        pos = (start[:, dcol] + jcol[None, :]).clamp(0, q - 1)
+        src = torch.gather(order, 1, pos)
+        send_idx = torch.where(jcol[None, :] < counts[:, dcol], src,
+                               -1).to(torch.int32)
+    else:
+        send_idx = torch.full((L, total), -1, dtype=torch.int32, device=dev)
+    overflow = (counts - torch.minimum(counts, budget[None, :])).sum(
+        dim=1, dtype=torch.int32)
+    startx = torch.cat([start, start.new_zeros((L, 1))], dim=1)
+    rank = torch.arange(q, device=dev)[None, :] - torch.gather(startx, 1, sd)
+    bx = torch.cat([budget, budget.new_zeros(1)])
+    ox = torch.cat([offset, offset.new_zeros(1)])
+    slot = torch.where((sd < n) & (rank < bx[sd]), ox[sd] + rank,
+                       -1).to(torch.int32)
+    reply_idx = torch.zeros((L, q), dtype=torch.int32,
+                            device=dev).scatter_(1, order, slot)
+    return send_idx, reply_idx, overflow, counts
+
+
+def dest_budgets_ref(dest: torch.Tensor, valid: torch.Tensor,
+                     n_nodes: int) -> torch.Tensor:
+    """Plain version of ``dest_budgets``: each destination's largest
+    per-row count of valid requests, (n_nodes,) int32."""
+    counts = dest_histogram2d_ref(_sentinel_dest(dest, valid, n_nodes),
+                                  n_bins=n_nodes)
+    if counts.shape[0] == 0:
+        return counts.new_zeros(n_nodes)
+    return counts.max(dim=0).values
+
+
 def mix_hash_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The FNV-style mix of the reference's ``mix_hash_i32`` on int32
     tensors → non-negative int32.  The 31-bit mask after every step keeps

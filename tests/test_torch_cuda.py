@@ -8,22 +8,26 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import exchange_plan as xp
 from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS, pack_chunks
 from repro_torch.kernels.chunk_pack.ops import gather_rows
 from repro_torch.kernels.chunk_pack.ref import pack_chunks_ref
+from repro_torch.kernels.chunk_router import chunk_router as router_cuda
 from repro_torch.kernels.chunk_router.chunk_router import (
-    CLUSTER_MAX_N, DEST_HISTOGRAM, DEST_HISTOGRAM2D, ROUTE_CHUNKS,
-    ROUTE_CHUNKS_SEGMENTED)
+    CLUSTER_MAX_N, DEST_BUDGETS, DEST_HISTOGRAM, DEST_HISTOGRAM2D,
+    ROUTE_CHUNKS, ROUTE_CHUNKS_SEGMENTED, ROUTE_PLAN)
 from repro_torch.kernels.chunk_router.chunk_router import \
     route_chunks as route_chunks_cuda
 from repro_torch.kernels.chunk_router.ops import (histogram_rows,
                                                   histogram_rows2d,
                                                   leaf_table, route_chunks,
                                                   route_leaves)
-from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
+from repro_torch.kernels.chunk_router.ref import (dest_budgets_ref,
+                                                  dest_histogram2d_ref,
                                                   dest_histogram_ref,
                                                   route_chunks_ref,
-                                                  route_chunks_segmented_ref)
+                                                  route_chunks_segmented_ref,
+                                                  route_plan_ref)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
     FLASH_ATTENTION, FLASH_ATTENTION_F32, FLASH_ATTENTION_WIDE,
@@ -61,6 +65,108 @@ def test_cuda_histogram_matches_plain(cuda, shape, n_bins):
     torch.cuda.synchronize()
     assert torch.equal(got, dest_histogram2d_ref(dest, n_bins=n_bins))
     assert DEST_HISTOGRAM2D.launches == before + (shape[0] > 0)
+
+
+def _routing(cuda, L, q, n, skewed, seed):
+    """(L, q) destinations in [-1, n] (both ends outside the nodes), a
+    fifth invalid, row 0 all invalid; ``skewed`` sends three quarters of
+    each row to one or two nodes."""
+    rng = np.random.RandomState(seed)
+    dest = rng.randint(-1, n + 1, (L, q)).astype(np.int32)
+    if skewed:
+        dest[:, : 3 * q // 4] = rng.randint(0, min(n, 2), (L, 1))
+    valid = rng.rand(L, q) > 0.2
+    valid[0] = False
+    return (torch.as_tensor(dest, device=cuda),
+            torch.as_tensor(valid, device=cuda), rng)
+
+
+PLAN_SHAPES = ([(n + 2, q, n) for n in (1, 8, 32, 64)
+                for q in (0, 1, 8, 33, 100)] +
+               [(32, 8, 32), (100, 8, 32), (32, 1024, 256), (32, 100, 2048),
+                (3, 40, 49999)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("L,q,n", PLAN_SHAPES)
+def test_cuda_route_plan_and_budgets_match_plain(cuda, L, q, n, skewed):
+    """``route_plan`` on uniform budgets {1, 3, q}, the measured budgets
+    and budgets below and above the counts, and ``dest_budgets``, each
+    bit for bit against its plain version with one launch a call; the
+    deployment's (32, 8) at 32 nodes, 1024 requests at 256 nodes, 2048
+    and 49,999 nodes (one row a block, shared memory past 48 KB)."""
+    dest, valid, rng = _routing(cuda, L, q, n, skewed, 7 * L + q + n)
+    before = DEST_BUDGETS.launches
+    got_b = router_cuda.dest_budgets(dest, valid, n)
+    torch.cuda.synchronize()
+    assert DEST_BUDGETS.launches == before + 1
+    assert torch.equal(got_b, dest_budgets_ref(dest, valid, n))
+    measured = got_b.cpu().numpy()
+    budgets = [np.full(n, b) for b in sorted({1, 3, q})] + [
+        measured, np.maximum(measured - 1, 0),
+        rng.randint(0, q + 2, n)]
+    for b in budgets:
+        if n * int(b.max()) > 1 << 24:        # keep send rows ≤ 64 MiB
+            continue
+        table = torch.as_tensor(np.stack([b, np.cumsum(b) - b]).astype(
+            np.int32), device=cuda)
+        total = int(b.sum())
+        before = ROUTE_PLAN.launches
+        got = router_cuda.route_plan(dest, valid, table, total=total)
+        torch.cuda.synchronize()
+        assert ROUTE_PLAN.launches == before + (L > 0)
+        want = route_plan_ref(dest, valid, table, total=total)
+        for a, w in zip(got, want):
+            assert a.dtype == torch.int32 and torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [1, 3, 8])
+def test_cuda_planner_is_one_launch_a_plan_and_a_spec(cuda, budget):
+    """The planner on the card: a uniform round and a ragged round are one
+    ``route_plan`` launch each, a measured spec one ``dest_budgets``
+    launch, each equal to the planner on the CPU."""
+    n, q = 32, 8
+    dest, valid, _ = _routing(cuda, n, q, n, budget == 3, budget)
+    dc, vc = dest.cpu(), valid.cpu()
+    p0, b0 = ROUTE_PLAN.launches, DEST_BUDGETS.launches
+    spec = xp.plan_ragged_spec(dest, valid, n)
+    assert DEST_BUDGETS.launches == b0 + 1
+    assert spec == xp.plan_ragged_spec(dc, vc, n)
+    for got, want in ((xp._compact_plan(dest, valid, n, budget),
+                       xp._compact_plan(dc, vc, n, budget)),
+                      (xp._compact_plan_ragged(dest, valid, n, spec),
+                       xp._compact_plan_ragged(dc, vc, n, spec))):
+        for a, w in zip(got, want):
+            assert torch.equal(a.cpu(), w)
+    assert ROUTE_PLAN.launches == p0 + 2
+    assert DEST_BUDGETS.launches == b0 + 1
+
+
+@pytest.mark.cuda
+def test_cuda_route_plan_wrappers_refuse_misuse(cuda):
+    """Other dtypes, non-contiguous views, mismatched shapes and a table
+    off the card or of the wrong shape raise with no launch."""
+    dest, valid, _ = _routing(cuda, 8, 16, 8, False, 0)
+    table = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    p0, b0 = ROUTE_PLAN.launches, DEST_BUDGETS.launches
+    bad = [(dest.long(), valid, table), (dest, valid.int(), table),
+           (dest.t(), valid.t(), table), (dest[:, :8], valid, table),
+           (dest, valid, table.cpu()), (dest, valid, table[:1]),
+           (dest, valid, table.long()), (dest.t().contiguous().t(), valid,
+                                         table)]
+    for d, v, t in bad:
+        with pytest.raises(ValueError):
+            router_cuda.route_plan(d, v, t, total=0)
+    for d, v, _ in bad[:4]:
+        with pytest.raises(ValueError):
+            router_cuda.dest_budgets(d, v, 8)
+    with pytest.raises(ValueError):
+        router_cuda.dest_budgets(dest, valid, 0)
+    with pytest.raises(ValueError):
+        router_cuda.route_plan(dest, valid, table, total=-1)
+    assert (ROUTE_PLAN.launches, DEST_BUDGETS.launches) == (p0, b0)
 
 
 @pytest.mark.cuda

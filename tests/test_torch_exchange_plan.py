@@ -1,7 +1,8 @@
 """The port's exchange planner against repro.core.exchange_plan: routing
 plans, measured ragged specs, the stacked ragged exchange in both
 directions, the fused write's receive views and the planner's gating — on
-identical inputs, bit for bit."""
+identical inputs, bit for bit.  The routing plans and specs go through
+``route_plan``/``dest_budgets``, whose plain versions run here."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,9 +10,12 @@ import torch
 
 from repro.core import exchange_plan as jxp
 from repro.core.policy import LayoutPolicy as JLayoutPolicy
+from repro.kernels.chunk_router.ops import histogram_rows2d as j_hist2d
 from repro_torch.core import exchange_plan as txp
 from repro_torch.core.layouts import LayoutMode
 from repro_torch.core.policy import LayoutPolicy
+from repro_torch.kernels.chunk_router.ref import (dest_budgets_ref,
+                                                  route_plan_ref)
 
 
 def _routing(seed, n=8, q=12, skew=False):
@@ -183,3 +187,81 @@ def test_run_exchange_carry_round_matches_reference(budget):
         _same(a, b)
     got = tout.numpy()
     assert (got[valid][:, 0] == 2 * vals[valid]).all()
+
+
+# ---------------------------------------------------------------------------
+# route_plan / dest_budgets: the plan's sweep
+# ---------------------------------------------------------------------------
+def _sweep_routing(n, q, skewed, seed):
+    """(n + 2, q) requests to n nodes: row 0 all invalid, a fifth of the
+    other slots invalid; ``skewed`` sends three quarters of every row to
+    one or two nodes."""
+    rng = np.random.RandomState(seed)
+    dest = rng.randint(0, n, (n + 2, q)).astype(np.int32)
+    if skewed:
+        dest[:, : 3 * q // 4] = rng.randint(0, min(n, 2), (n + 2, 1))
+    valid = rng.rand(n + 2, q) > 0.2
+    valid[0] = False
+    return dest, valid
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("q", [0, 1, 8, 33, 100])
+@pytest.mark.parametrize("n", [1, 8, 32, 64])
+def test_route_plan_sweep_matches_reference(n, q, skewed):
+    """Uniform budgets {1, 3, q} and ragged specs measured on the same
+    requests (lossless), on other requests and one below every count
+    (overflow): the port's plans equal the JAX planner's, the measured
+    budgets its ``plan_ragged_spec``'s, and ``route_plan_ref``'s counts and
+    ``dest_budgets_ref`` the reference histogram's."""
+    dest, valid = _sweep_routing(n, q, skewed, 1000 * n + q)
+    jd, jv = jnp.asarray(dest), jnp.asarray(valid)
+    td, tv = torch.as_tensor(dest), torch.as_tensor(valid)
+    for budget in sorted({1, 3, q}):
+        ref = jxp._compact_plan(jd, jv, n, budget)
+        got = txp._compact_plan(td, tv, n, budget)
+        for a, b in zip(ref, got):
+            _same(a, b)
+            assert b.dtype == torch.int32
+    jspec = jxp.plan_ragged_spec(jd, jv, n)
+    spec = txp.plan_ragged_spec(td, tv, n)
+    assert jspec.budgets == spec.budgets
+    od, ov = _sweep_routing(n, q, not skewed, 1000 * n + q + 1)
+    other = txp.plan_ragged_spec(torch.as_tensor(od), torch.as_tensor(ov), n,
+                                 align=1)
+    exact = txp.plan_ragged_spec(td, tv, n, align=1)
+    below = txp.RaggedSpec(tuple(max(0, b - 1) for b in exact.budgets))
+    for s in (spec, other, below):
+        ref = jxp._compact_plan_ragged(jd, jv, n, jxp.RaggedSpec(s.budgets))
+        got = txp._compact_plan_ragged(td, tv, n, s)
+        for a, b in zip(ref, got):
+            _same(a, b)
+        if s is spec:
+            assert int(got[2].sum()) == 0         # measured ⇒ lossless
+        if s is below and q and valid.any():
+            assert int(got[2].sum()) > 0
+    counts = np.asarray(j_hist2d(jnp.where(jv, jd, n), n_bins=n + 1))[:, :n]
+    table = txp.spec_tables(spec, torch.device("cpu")).table
+    _, _, over, got_counts = route_plan_ref(td, tv, table, total=spec.total)
+    _same(counts, got_counts)
+    _same(np.maximum(counts - np.asarray(spec.budgets), 0).sum(1), over)
+    _same(counts.max(0), dest_budgets_ref(td, tv, n))
+
+
+def test_spec_tables_are_built_once_per_spec_and_device():
+    """A spec's device tables are cached: a second plan or exchange with
+    the same spec copies nothing to the device."""
+    spec = txp.RaggedSpec((3, 0, 1, 2))
+    cpu = torch.device("cpu")
+    t = txp.spec_tables(spec, cpu)
+    assert txp.spec_tables(txp.RaggedSpec((3, 0, 1, 2)), cpu) is t
+    assert t.table is t.table and t.table.dtype == torch.int32
+    np.testing.assert_array_equal(t.table.numpy(),
+                                  [[3, 0, 1, 2], [0, 3, 3, 4]])
+    np.testing.assert_array_equal(t.recv_rows.numpy(),
+                                  txp._ragged_recv_rows(spec, 4))
+    assert t.reply_rows.shape == (4 * spec.total,)
+    uni = txp.spec_tables(txp._uniform_spec(3, 2), cpu).table
+    np.testing.assert_array_equal(uni.numpy(), [[2, 2, 2], [0, 2, 4]])
+    with pytest.raises(ValueError, match="one per node"):
+        txp.ragged_exchange(torch.zeros((3, spec.total, 2)), spec, 4)

@@ -19,12 +19,17 @@ from repro_torch.kernels.chunk_pack.chunk_pack import pack_chunks
 from repro_torch.kernels.chunk_pack.ops import gather_rows, gather_rows_batched
 from repro_torch.kernels.chunk_pack.ref import (gather_rows_batched_ref,
                                                 pack_chunks_ref)
+from repro_torch.kernels.chunk_router import chunk_router as router_cuda
 from repro_torch.kernels.chunk_router.chunk_router import (dest_histogram,
                                                           dest_histogram2d)
-from repro_torch.kernels.chunk_router.ops import (histogram_rows,
-                                                  histogram_rows2d)
-from repro_torch.kernels.chunk_router.ref import (dest_histogram2d_ref,
-                                                  dest_histogram_ref)
+from repro_torch.kernels.chunk_router.ops import (dest_budgets,
+                                                  histogram_rows,
+                                                  histogram_rows2d,
+                                                  route_plan)
+from repro_torch.kernels.chunk_router.ref import (dest_budgets_ref,
+                                                  dest_histogram2d_ref,
+                                                  dest_histogram_ref,
+                                                  route_plan_ref)
 
 RNG = np.random.RandomState(7)
 
@@ -155,6 +160,96 @@ def test_gather_rows_batched_rebase_matches_reference(shape, dtype):
 
 
 # ---------------------------------------------------------------------------
+# route_plan: the kernel's warp algorithm against the plain version
+# ---------------------------------------------------------------------------
+def _warp_model(dest, valid, budget, offset, total):
+    """``csrc/dest_histogram2d.cu``'s route_plan_kernel, one warp a row,
+    in numpy: 32-slot chunks in slot order, peer masks (lanes of a chunk
+    with the same destination), the leader (lowest peer) advancing the
+    row's counter; the send row filled with -1, then pass 2's ranks (the
+    counter before the chunk + lower peers) scattered over it.  Unwritten
+    reply slots stay -99, so a slot the kernel would leave unwritten fails
+    the comparison."""
+    L, q = dest.shape
+    n = len(budget)
+    send = np.full((L, total), -99, np.int64)
+    reply = np.full((L, q), -99, np.int64)
+    over = np.zeros(L, np.int64)
+    counts = np.zeros((L, n), np.int64)
+    lanes = np.arange(32)
+    for r in range(L):
+        def chunk(base):
+            j = base + lanes
+            ok = j < q
+            jj = np.minimum(j, max(q - 1, 0))
+            d = dest[r, jj] if q else np.zeros(32, np.int64)
+            inb = ok & (valid[r, jj] if q else False) & (d >= 0) & (d < n)
+            d = np.where(inb, d, n)
+            peers = d[:, None] == d[None, :]
+            leader = peers.argmax(axis=1) == lanes
+            return j, d, peers, leader
+
+        cnt = np.zeros(n + 1, np.int64)
+        for base in range(0, q, 32):
+            _, d, peers, leader = chunk(base)
+            np.add.at(cnt, d[leader], peers.sum(axis=1)[leader])
+        counts[r] = cnt[:n]
+        over[r] = np.maximum(cnt[:n] - budget, 0).sum()
+        send[r] = -1
+        cnt[:] = 0
+        for base in range(0, q, 32):
+            j, d, peers, leader = chunk(base)
+            before = cnt[d]
+            cnt[d[leader]] = before[leader] + peers.sum(axis=1)[leader]
+            rank = before + np.tril(peers, -1).sum(axis=1)
+            for lane in np.flatnonzero(j < q):
+                dl = d[lane]
+                slot = -1
+                if dl < n and rank[lane] < budget[dl]:
+                    slot = offset[dl] + rank[lane]
+                    send[r, slot] = j[lane]
+                reply[r, j[lane]] = slot
+    return send, reply, over, counts
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("q", [0, 1, 8, 33, 100])
+@pytest.mark.parametrize("n", [1, 8, 32, 64])
+def test_route_plan_warp_algorithm_matches_plain(n, q, skewed):
+    """The kernel's chunked peer-mask ranks equal the stable sort's on
+    uniform budgets {1, 3, q} and a ragged table whose budgets lie above,
+    at and below the counts (Σb > q included); ``dest_budgets_ref`` is the
+    model's column maximum."""
+    rng = np.random.RandomState(100 * n + q)
+    dest = rng.randint(-1, n + 1, (n + 2, q)).astype(np.int32)
+    if skewed:
+        dest[:, : 3 * q // 4] = rng.randint(0, min(n, 2), (n + 2, 1))
+    valid = rng.rand(n + 2, q) > 0.2
+    valid[0] = False
+    td, tv = torch.as_tensor(dest), torch.as_tensor(valid)
+    tables = [np.stack([np.full(n, b), np.arange(n) * b]) for b in
+              sorted({1, 3, q})]
+    ragged = rng.randint(0, max(q, 1) + 2, n)
+    tables.append(np.stack([ragged, np.cumsum(ragged) - ragged]))
+    for tab in tables:
+        total = int(tab[0].sum())
+        want = _warp_model(dest, valid, tab[0], tab[1], total)
+        got = route_plan_ref(td, tv, torch.as_tensor(tab.astype(np.int32)),
+                             total=total)
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(a, b.numpy())
+            assert b.dtype == torch.int32
+        np.testing.assert_array_equal(
+            dest_budgets_ref(td, tv, n).numpy(),
+            want[3].max(axis=0) if len(dest) else np.zeros(n))
+        np.testing.assert_array_equal(
+            route_plan(td, tv, torch.as_tensor(tab.astype(np.int32)),
+                       total=total)[0].numpy(), want[0])
+    np.testing.assert_array_equal(dest_budgets(td, tv, n).numpy(),
+                                  want[3].max(axis=0))
+
+
+# ---------------------------------------------------------------------------
 # dispatch and build: no quiet fallback
 # ---------------------------------------------------------------------------
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -165,6 +260,25 @@ def test_cuda_wrappers_reject_cpu_tensors():
                     torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         dest_histogram2d(torch.zeros((2, 2), dtype=torch.int32), n_bins=3)
+
+
+def test_route_plan_and_dest_budgets_wrappers_reject_cpu_tensors():
+    """The planner's kernel wrappers take CUDA tensors only (dtype,
+    contiguity and shape refusals on the card: test_torch_cuda.py); the
+    entry points reject other devices."""
+    dest = torch.zeros((2, 3), dtype=torch.int32)
+    valid = torch.ones((2, 3), dtype=torch.bool)
+    table = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        router_cuda.route_plan(dest, valid, table, total=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        router_cuda.dest_budgets(dest, valid, 4)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        route_plan(dest.to(**meta), valid.to(**meta), table.to(**meta),
+                   total=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dest_budgets(dest.to(**meta), valid.to(**meta), 4)
 
 
 def test_dest_histogram_wrapper_rejects_cpu_tensors_and_misuse():
