@@ -83,6 +83,30 @@ Phases, each of which must succeed or the run fails without a result line:
       clock), the read's stage breakdown, and a profile of one write, read
       and stat (device busy time, idle share, launches, host syncs,
       copies, top kernels);
+  (e2) online adaptation (the deployment's client freed first):
+      ``tests/test_adapt.py``'s pinned interleaved stream (N 8, q 6, 8
+      words) on the card without and with a ``LiveMigrator`` (into
+      DIST_HASH and HYBRID), each giving the pinned digest; then a scope
+      that drifts at the deployment's width: 32 nodes, 1 MiB chunks,
+      ``/bb/hot`` NODE_LOCAL (default DIST_HASH), ``telemetry=True`` and a
+      ``TraceRecorder``; every node writes 16 files x 8 chunks (4 GiB),
+      then ring-permuted cross-rank reads with an
+      ``AdaptationController`` tick after each (patience 2, cooldown 3,
+      min weight 4, horizon 1e4 rounds, 256-chunk installments, 4 a
+      tick).  It asserts exactly one adoption, the migration's completion
+      within the phase, every read bit for bit, the fallback disarmed, one
+      ``/bb/hot`` entry in the new mode, one counts-only
+      ``dest_histogram2d`` launch per telemetry record, a ``pack_chunks``
+      re-compaction (two launches) and ``route_plan`` rounds in every
+      installment, one ``route_plan`` a round and one ``dest_budgets`` a
+      spec, and ``exchange.*`` spans under adapt.tick ->
+      migrate.installment -> client.migrate -> engine.migrate_rows; and
+      times one telemetry record, a tick without adoption, each
+      installment (one under the profiler), the migration, the
+      re-compaction's gather against its bytes bound and the phase's
+      peak memory; then the deployment's write, read and stat with
+      telemetry and tracing each turned on and off in place (latency,
+      launches, syncs, copies);
   (f) training: ``run_training`` with gemma3-1b at full width (26 layers,
       d 1152, vocab 262144, 999,812,736 params, bf16 compute, f32 params),
       batch 4 × 1024 tokens, checkpoints every 2 steps through the
@@ -178,6 +202,18 @@ TIE_GAP = 10.0                 # scaled-score lead of a decided softmax row
 # the histogram's cluster path in one more block shape, built from the same
 # source with -D beside the shipped one, for the timing in phase b2
 HIST_OTHER_SHAPE = {"CLUSTER_THREADS": 512, "LOADS": 4}
+
+# (e2) online adaptation: a NODE_LOCAL scope whose traffic drifts from
+# writes to cross-rank reads, under the reference's test settings
+# (tests/test_adapt.py: patience 2, cooldown 3, min weight 4, horizon 1e4
+# rounds) with 256-chunk installments, four a tick; and the pinned digest
+# of tests/test_adapt.py's interleaved relayout stream
+ADAPT_SCOPE = "/bb/hot"
+ADAPT_FILES, ADAPT_CHUNKS = 16, 8          # per node: 16 files x 8 chunks
+ADAPT_READS = 12                           # cross-rank reads, a tick each
+ADAPT_DRIFT = dict(patience=2, cooldown=3, min_weight=4.0)
+ADAPT_HORIZON, ADAPT_STEP, ADAPT_PER_TICK = 1e4, 256, 4
+STREAM_DIGEST = "cfd76da6b40767fb96d3095ded4fbb01"
 
 # SHA-256 digests pinned by the JAX package's tests (tests/test_policy.py,
 # SEED_DIGESTS: the seed engine's outputs for the fixed trace of
@@ -1780,7 +1816,7 @@ def profile_client_calls(client, req) -> dict:
         ("stat", lambda: client.stat(req)))}
 
 
-def call_profile(fn) -> dict:
+def call_profile(fn, tries: int = 3) -> dict:
     """One call of ``fn`` under ``torch.profiler``, ended by a
     synchronize: wall ms, device busy ms (kernels, copies, memsets), the
     device operations by name, kernel launches (runtime and driver launch
@@ -1788,10 +1824,10 @@ def call_profile(fn) -> dict:
     host's syncs (``cudaStreamSynchronize`` and blocking ``cudaMemcpy``
     calls: each blocking copy, ``.item()`` and ``.cpu()`` makes one; the
     closing device synchronize is not counted).  A session that recorded no device work is taken again,
-    twice at most."""
+    up to ``tries`` sessions in all (``fn`` runs once a session)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1841,6 +1877,506 @@ def profile_call(name: str, fn) -> dict:
             f"x{e.count:<4d} {e.key[:90]}")
     del st["ops"]
     return st
+
+
+# ---------------------------------------------------------------------------
+# (e2) online adaptation: telemetry, drift, re-decision, live relayout
+# ---------------------------------------------------------------------------
+def relayout_stream(relayout: bool, new_mode: int = 3):
+    """``tests/test_adapt.py``'s pinned interleaved stream (N 8, q 6, 8
+    words, ``/bb/hot`` NODE_LOCAL, default DIST_HASH) on the card, with a
+    ``LiveMigrator`` advancing one 8-chunk installment after every read and
+    stat when ``relayout``: returns (client, observables)."""
+    from repro_torch.core.adapt import LiveMigrator
+    from repro_torch.core.client import BBClient, BBRequest
+    from repro_torch.core.policy import LayoutPolicy
+    n, q, w = 8, 6, 8
+    client = BBClient(LayoutPolicy.from_scopes({ADAPT_SCOPE: 1}, n_nodes=n,
+                                               default=3),
+                      device=DEVICE, cap=256, words=w, mcap=256,
+                      telemetry=True)
+    rng = np.random.RandomState(7)
+    outs, reqs = [], []
+    for _ in range(3):
+        paths = [[f"{ADAPT_SCOPE}/r{i}/f{j % 2}" for j in range(q)]
+                 for i in range(n)]
+        shared = [[f"/shared/g{j}" for j in range(q)] for _ in range(n)]
+        cid = rng.randint(0, 4, (n, q)).astype(np.int32)
+        pay = rng.randint(0, 9999, (n, q, w)).astype(np.int32)
+        wreq = client.encode(paths, chunk_id=cid, payload=pay)
+        client.write(wreq)
+        client.write(client.encode(shared, chunk_id=cid, payload=pay))
+        reqs.append(wreq)
+    mig = LiveMigrator(client, ADAPT_SCOPE, new_mode, step_chunks=8) \
+        if relayout else None
+    perm = torch.as_tensor(np.roll(np.arange(n), 3), device=DEVICE)
+    for step in range(12):
+        base = reqs[step % len(reqs)]
+        outs += client.read(BBRequest(
+            path_hash=base.path_hash[perm], chunk_id=base.chunk_id[perm],
+            scope_hash=base.scope_hash[perm]))
+        outs += client.stat(base)[:2]
+        if mig is not None and not mig.done:
+            mig.step()
+            if mig.done:
+                mig.finish()
+    return client, outs
+
+
+def adapt_payload(seed: int, k: int) -> torch.Tensor:
+    """The payload every node writes into its file ``k`` of the drifting
+    scope, (N_NODES, ADAPT_CHUNKS, WORDS) int32, made anew from the seed
+    whenever a read is checked."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed * 1000 + k)
+    return torch.randint(-2 ** 31, 2 ** 31 - 1,
+                         (N_NODES, ADAPT_CHUNKS, WORDS), dtype=torch.int32,
+                         device=DEVICE, generator=gen)
+
+
+def adapt_paths(k: int, rows):
+    """File ``k`` of each listed rank, ADAPT_CHUNKS requests a row."""
+    return [[f"{ADAPT_SCOPE}/rank{r}/f{k}"] * ADAPT_CHUNKS for r in rows]
+
+
+def span_parents(rec) -> dict:
+    """Each span's enclosing span one level up (by depth and time)."""
+    spans = list(rec.spans)
+    out = {}
+    for i, s in enumerate(spans):
+        for p in spans:
+            if p.depth == s.depth - 1 and p.ts_us <= s.ts_us and \
+                    s.ts_us + s.dur_us <= p.ts_us + p.dur_us + 1e-3:
+                out[i] = p
+                break
+    return out
+
+
+class AdaptProbes:
+    """Wraps, while active: the client's ``telemetry.record`` (each call
+    must launch exactly one counts-only ``dest_histogram2d``),
+    ``LiveMigrator.step`` (wall time and the launches of each installment,
+    one of them under the profiler) and ``burst_buffer._clear_chunks``
+    (each re-compaction two ``pack_chunks`` launches, data and keys)."""
+
+    def __init__(self, client, kernels: dict, profile_installment: int):
+        from repro_torch.core import burst_buffer as bb
+        from repro_torch.core.adapt import migrate
+        self.client, self.k = client, kernels
+        self.records = self.clears = 0
+        self.installments = []
+        self.profile_at = profile_installment
+        self.profile = None
+        self._targets = [(bb, "_clear_chunks", self._clear),
+                         (migrate.LiveMigrator, "step", self._step),
+                         (client.telemetry, "record", self._record)]
+        self._saved = []
+
+    def _record(self, fn, *a, **kw):
+        before = self.k["dest_histogram2d"].launches
+        out = fn(*a, **kw)
+        got = self.k["dest_histogram2d"].launches - before
+        check(got == 1, f"a telemetry record made {got} dest_histogram2d "
+                        f"launches, not one")
+        self.records += 1
+        return out
+
+    def _clear(self, fn, *a, **kw):
+        before = self.k["pack_chunks"].launches
+        out = fn(*a, **kw)
+        got = self.k["pack_chunks"].launches - before
+        check(got == 2, f"a re-compaction made {got} pack_chunks launches, "
+                        f"not two (data and key tables)")
+        self.clears += 1
+        return out
+
+    def _step(self, fn, mig, *a, **kw):
+        before = {name: c.launches for name, c in self.k.items()}
+        clears = self.clears
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(self.installments) == self.profile_at:
+            box = {}
+            self.profile = call_profile(
+                lambda: box.setdefault("n", fn(mig, *a, **kw)), tries=1)
+            taken = box["n"]
+        else:
+            taken = fn(mig, *a, **kw)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        self.installments.append(dict(
+            ms=wall, chunks=taken, clears=self.clears - clears,
+            launches={n: c.launches - before[n]
+                      for n, c in self.k.items()}))
+        return taken
+
+    def __enter__(self):
+        for owner, name, wrap in self._targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn, owner.__dict__.get(name)))
+            if isinstance(owner, type):
+                def bound(mig, *a, _fn=fn, _wrap=wrap, **kw):
+                    return _wrap(_fn, mig, *a, **kw)
+                setattr(owner, name, bound)
+            else:
+                setattr(owner, name,
+                        lambda *a, _fn=fn, _wrap=wrap, **kw:
+                        _wrap(_fn, *a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn, own in reversed(self._saved):
+            if isinstance(owner, type) or own is not None:
+                setattr(owner, name, fn if own is None else own)
+            else:
+                delattr(owner, name)
+
+
+def drive_adapt(client, ctl, seed: int) -> dict:
+    """The drifting scope's traffic and checks: every node writes its
+    ADAPT_FILES files of ADAPT_CHUNKS chunks ((N, 8) calls), a controller
+    tick (the write baseline), then ADAPT_READS ring-permuted cross-rank
+    reads of those files (node r reads what node r-1 wrote), a tick after
+    each; every read is held bit for bit against the written payload."""
+    cids = np.tile(np.arange(ADAPT_CHUNKS, dtype=np.int32), (N_NODES, 1))
+    t0 = time.perf_counter()
+    for k in range(ADAPT_FILES):
+        req = client.encode(adapt_paths(k, range(N_NODES)), chunk_id=cids)
+        req.payload = adapt_payload(seed, k)
+        client.write(req)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    check(int(client.state.dropped.sum()) == 0, "adapt writes were dropped")
+    reports = [ctl.tick()]
+    perm = np.roll(np.arange(N_NODES), 1)
+    tick_ms = []
+    for step in range(ADAPT_READS):
+        k = step % ADAPT_FILES
+        rreq = client.encode(adapt_paths(k, perm), chunk_id=cids[perm])
+        out, found = client.read(rreq)
+        check(bool(found.all()), f"adapt read {step} (epoch "
+                                 f"{client.epoch}): chunks not found")
+        want = adapt_payload(seed, k)[torch.as_tensor(perm, device=DEVICE)]
+        check(torch.equal(out, want), f"adapt read {step} (epoch "
+                                      f"{client.epoch}) differs from the "
+                                      f"written payload")
+        del out, want
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reports.append(ctl.tick())
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+    return {"reports": reports, "tick_ms": tick_ms, "write_s": write_s}
+
+
+def phase_adapt(seed: int, kernels: dict) -> dict:
+    """(e2): the pinned relayout stream on the card, then a scope that
+    drifts at the deployment's width, adapted by the controller; returns
+    its launch counts and times.  ``kernels`` maps name → counter of the
+    path's kernels; each must launch."""
+    from repro_torch.core import obs
+    from repro_torch.core.adapt import (AdaptConfig, AdaptationController,
+                                        DriftConfig)
+    from repro_torch.core.client import BBClient
+    from repro_torch.core.policy import LayoutPolicy
+    for new_mode in (3, 4):
+        _, plain = relayout_stream(False)
+        client, moved = relayout_stream(True, new_mode)
+        got = (digest(*plain), digest(*moved))
+        check(got == (STREAM_DIGEST, STREAM_DIGEST),
+              f"relayout stream into mode {new_mode}: digests {got}, "
+              f"pinned {STREAM_DIGEST}")
+        check(client.epoch == 2 and client.fallback is None,
+              "relayout stream: migration did not finish")
+        log(f"[adapt] pinned relayout stream (N 8, q 6, W 8, /bb/hot "
+            f"NODE_LOCAL -> mode {new_mode}): {got[0]} without and {got[1]} "
+            f"with a LiveMigrator, pinned {STREAM_DIGEST}")
+    del client, plain, moved
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = obs.TraceRecorder(capacity=1 << 17)
+    client = BBClient(LayoutPolicy.from_scopes({ADAPT_SCOPE: 1},
+                                               n_nodes=N_NODES, default=3),
+                      cap=CAP, words=WORDS, mcap=MCAP, telemetry=True,
+                      trace=rec)
+    ctl = AdaptationController(client, cfg=AdaptConfig(
+        drift=DriftConfig(**ADAPT_DRIFT), horizon_rounds=ADAPT_HORIZON,
+        step_chunks=ADAPT_STEP, installments_per_tick=ADAPT_PER_TICK))
+    for c in kernels.values():
+        c.launches = 0
+    with PlannerCalls() as planner, \
+            AdaptProbes(client, kernels, profile_installment=1) as probes:
+        t0 = time.perf_counter()
+        drove = drive_adapt(client, ctl, seed)
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in kernels.items()}
+    reports = drove["reports"]
+    phases = [r.phase for r in reports]
+    log(f"[adapt] {N_NODES} nodes x {ADAPT_FILES} files x {ADAPT_CHUNKS} "
+        f"chunks of 1 MiB written in {drove['write_s']:.3f} s; "
+        f"{ADAPT_READS} cross-rank reads, all bit for bit; tick phases "
+        f"{phases}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the adaptation path")
+    check(phases.count("adopted") == 1,
+          f"{phases.count('adopted')} adoptions, not exactly one: {phases}")
+    check("completed" in phases[phases.index("adopted"):],
+          f"the migration did not complete within the phase: {phases}")
+    check(client.fallback is None, "the dual-epoch fallback is still armed")
+    adopted = reports[phases.index("adopted")]
+    new_mode = adopted.delta.new_mode
+    hot = [m for s, m in client.policy.scopes if s == ADAPT_SCOPE]
+    check(hot == [new_mode] and not any(s.startswith("/__epoch") for s, _ in
+                                        client.policy.scopes),
+          f"final policy {client.policy.scopes}, not one {ADAPT_SCOPE} "
+          f"entry in mode {new_mode!r}")
+    check(launches["route_plan"] == planner.rounds,
+          f"{planner.rounds} routing rounds made {launches['route_plan']} "
+          f"route_plan launches, not one each")
+    check(launches["dest_budgets"] == planner.specs,
+          f"{planner.specs} measured specs made "
+          f"{launches['dest_budgets']} dest_budgets launches, not one each")
+    inst = probes.installments
+    check(inst and all(i["clears"] == 1 and i["launches"]["pack_chunks"] > 0
+                       and i["launches"]["route_plan"] > 0 for i in inst),
+          f"an installment ran no re-compaction, pack_chunks or route_plan: "
+          f"{inst}")
+    check(probes.records == launches["dest_histogram2d"],
+          f"{probes.records} telemetry records, "
+          f"{launches['dest_histogram2d']} dest_histogram2d launches")
+    parents = span_parents(rec)
+    spans = list(rec.spans)
+    chain = ("adapt.tick", "migrate.installment", "client.migrate",
+             "engine.migrate_rows")
+    ok = 0
+    for i, s in enumerate(spans):
+        if s.name.startswith("exchange."):
+            up, names = parents.get(i), []
+            while up is not None:
+                names.append(up.name)
+                up = parents.get(spans.index(up))
+            if [n for n in reversed(names) if n in chain] == list(chain):
+                ok += 1
+    check(ok > 0, "no exchange.* span under adapt.tick -> "
+                  "migrate.installment -> client.migrate -> "
+                  "engine.migrate_rows in the trace")
+    gate = adopted.gate
+    moved = rec.metrics.get("migrate_moved_total")
+    mig_ticks = [t for r, t in zip(reports[1:], drove["tick_ms"])
+                 if r.phase in ("adopted", "migrating", "completed")]
+    log(f"[adapt] adopted at tick {adopted.tick}: {ADAPT_SCOPE} "
+        f"{adopted.delta.old_mode.name} -> {new_mode.name} (gain "
+        f"{adopted.delta.gain_s:.6f} s a round, horizon {ADAPT_HORIZON:g} "
+        f"rounds, migration cost {gate['migration_cost_s']:.6f} s, "
+        f"fabric measured {bool(gate['fabric_measured'])}); "
+        f"{len(inst)} installments of <= {ADAPT_STEP} chunks, "
+        f"{ADAPT_PER_TICK} a tick; final epoch {client.epoch}")
+    log(f"[adapt] launches on the adaptation path: {launches}; "
+        f"{probes.records} telemetry records, one dest_histogram2d each; "
+        f"{planner.rounds} routing rounds, {planner.specs} measured specs; "
+        f"{ok} exchange spans under adapt.tick -> migrate.installment -> "
+        f"client.migrate -> engine.migrate_rows")
+    log(f"[adapt] migration: {sum(mig_ticks):.3f} ms of ticks from adoption "
+        f"to completion (host clock), {int(moved)} chunks moved "
+        f"({moved * WORDS * 4 / 2 ** 30:.3f} GiB of payload); "
+        f"installments {[round(i['ms'], 3) for i in inst]} ms")
+    prof = probes.profile
+    log(f"[adapt] one installment under the profiler: wall "
+        f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
+        f"{prof['launches']} launches, {prof['syncs']} host syncs, "
+        f"{prof['htod']} host-to-device copies")
+    for e in sorted(prof["dev"], key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[adapt]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
+    out = {"launches": launches, "phases": phases,
+           "installment_ms": [i["ms"] for i in inst],
+           "installment_profile": {k: v for k, v in prof.items()
+                                   if k in ("wall_ms", "busy_ms", "launches",
+                                            "syncs", "htod", "dtoh")},
+           "migration_ms": sum(mig_ticks), "moved_chunks": moved,
+           "drive_s": drive_s, "gate": dict(gate),
+           "new_mode": int(new_mode)}
+    out.update(adapt_path_timings(client, ctl, seed))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[adapt] peak device memory of the phase "
+        f"{out['peak_gib']:.2f} GiB (data table "
+        f"{client.state.data.numel() * 4 / 2 ** 30:.2f} GiB)")
+    return out
+
+
+def adapt_path_timings(client, ctl, seed: int) -> dict:
+    """Times on the adapted tables: one telemetry record, a tick without
+    adoption, and the re-compaction's gather against its bytes bound."""
+    from repro_torch.core.layouts import route_data
+    from repro_torch.kernels.chunk_pack.ops import gather_rows_batched
+    from repro_torch.kernels.chunk_pack.ref import pack_chunks_ref
+    out = {}
+    cids = np.tile(np.arange(ADAPT_CHUNKS, dtype=np.int32), (N_NODES, 1))
+    perm = np.roll(np.arange(N_NODES), 1)
+    req = client.encode(adapt_paths(0, perm), chunk_id=cids[perm])
+    mode, valid = client._modes(req), client._valid(req)
+    dest = route_data(mode, N_NODES, req.path_hash, req.chunk_id,
+                      client._client_ranks())
+    hint = torch.zeros_like(valid)
+    tel = client.telemetry
+
+    def record():
+        tel.record("read", req.scope_hash, req.path_hash, req.chunk_id,
+                   dest, valid, words=WORDS, self_hint=hint,
+                   n_nodes=N_NODES, capacity=2.0)
+
+    rec_ms = device_ms(record, 20)
+    rec_prof = call_profile(record)
+    log(f"[time] one telemetry.record ({N_NODES}, {ADAPT_CHUNKS}): device "
+        f"{rec_ms:.6f} ms, {rec_prof['launches']} launches, "
+        f"{rec_prof['syncs']} host syncs, {rec_prof['htod']} host-to-device "
+        f"copies, wall {rec_prof['wall_ms']:.3f} ms under the profiler")
+    ticks = []
+    for _ in range(3):
+        client.read(req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ctl.tick()
+        torch.cuda.synchronize()
+        ticks.append(((time.perf_counter() - t0) * 1e3, rep.phase))
+    check(all(p not in ("adopted", "migrating") for _, p in ticks),
+          f"a tick after the migration adopted again: {ticks}")
+    log(f"[time] a tick without adoption (after one read): best "
+        f"{min(t for t, _ in ticks):.3f} ms host clock, phases "
+        f"{[p for _, p in ticks]}")
+    # the re-compaction's gather on the adapted data table
+    st = client.state
+    keep = st.data_keys[..., 0] != -1
+    cap = keep.shape[1]
+    ar = torch.arange(cap, device=DEVICE)[None, :]
+    order = torch.argsort(torch.where(keep, ar, cap), dim=1, stable=True)
+    idx = torch.where(torch.gather(keep, 1, order), order, -1).to(
+        torch.int32)
+    rows = int(keep.sum())
+    check(rows < keep.numel(), "the re-compaction check needs blank rows")
+    nbytes = (rows + keep.numel()) * WORDS * 4 + idx.numel() * 4
+    b, by = bound_ms(nbytes, 0)
+    flat = st.data.reshape(-1, WORDS)
+    base = torch.arange(N_NODES, dtype=torch.int32,
+                        device=DEVICE)[:, None] * cap
+    fidx = torch.where(idx >= 0, idx + base, -1).reshape(-1)
+    got = gather_rows_batched(st.data, idx)
+    ref = pack_chunks_ref(flat, fidx)
+    check(torch.equal(got.reshape(-1, WORDS), ref),
+          f"re-compaction gather ({N_NODES}, {cap}) rows of 1 MiB: "
+          f"pack_chunks differs from its plain version")
+    del got, ref
+    check_clear_chunks(st)
+    g_ms = device_ms(lambda: gather_rows_batched(st.data, idx), 3, b)
+    p_ms = cuda_ms(lambda: pack_chunks_ref(flat, fidx), 2, warmup=1)
+    log(f"[time] re-compaction gather ({N_NODES}, {cap}) rows of 1 MiB, "
+        f"{rows} live: pack_chunks {g_ms:.4f} ms device, plain "
+        f"{p_ms:.4f} ms, bound {b:.4f} ms ({by}, "
+        f"{nbytes / 2 ** 30:.2f} GiB moved), {b / g_ms:.3f} of bound")
+    out.update(record_ms=rec_ms, record_profile={
+        k: rec_prof[k] for k in ("launches", "syncs", "htod", "wall_ms")},
+        tick_ms=min(t for t, _ in ticks), gather=dict(
+            ms=g_ms, plain_ms=p_ms, bound_ms=b, bound_by=by,
+            gib=nbytes / 2 ** 30, rows=rows))
+    return out
+
+
+def check_clear_chunks(st) -> None:
+    """``_clear_chunks`` at the deployment's shape, on a copy of the
+    adapted state with every third slot's key cleared, against a plain
+    version: each node keeps its other live rows in order, then blank
+    rows (payload 0, key EMPTY), and its count is the kept rows."""
+    import dataclasses
+    from repro_torch.core import burst_buffer as bb
+    keys = st.data_keys[:, ::3].contiguous()
+    valid = keys[..., 0] != bb.EMPTY
+    new = bb._clear_chunks(dataclasses.replace(st), keys, valid)
+    host = st.data_keys.cpu().numpy()
+    cleared = 0
+    for n in range(N_NODES):
+        gone = {tuple(k) for k in host[n, ::3] if k[0] != -1}
+        keep = np.array([k[0] != -1 and k not in gone
+                         for k in map(tuple, host[n])])
+        live = int(keep.sum())
+        cleared += int((host[n, :, 0] != -1).sum()) - live
+        mask = torch.as_tensor(keep, device=DEVICE)
+        check(int(new.data_count[n]) == live and
+              torch.equal(new.data_keys[n, :live], st.data_keys[n][mask])
+              and bool((new.data_keys[n, live:] == bb.EMPTY).all())
+              and torch.equal(new.data[n, :live], st.data[n][mask])
+              and not bool(new.data[n, live:].any()),
+              f"_clear_chunks ({N_NODES}, {host.shape[1]}) rows of 1 MiB: "
+              f"node {n} differs from the plain re-compaction")
+    check(cleared > 0, "_clear_chunks check cleared no row")
+    log(f"[adapt] _clear_chunks on the adapted ({N_NODES}, "
+        f"{host.shape[1]}) tables of 1 MiB rows, {cleared} rows cleared: "
+        f"data, keys and counts equal to the plain re-compaction")
+    del new
+    torch.cuda.empty_cache()
+
+
+def phase_adapt_calls(seed: int) -> dict:
+    """The deployment's write, read and stat (its policy, 32 x 8 requests
+    of 1 MiB) on one client with telemetry and a recorder, each turned
+    off and on in place: latency (host clock, best of 3, untraced and
+    traced in turns), launches, host syncs and copies (profiler), against
+    the same calls with both off."""
+    from repro_torch.core import obs
+    from repro_torch.core.client import BBClient
+    rec = obs.TraceRecorder(capacity=1 << 16)
+    client = BBClient(deployment_policy(), cap=CAP, words=WORDS, mcap=MCAP,
+                      telemetry=True, trace=rec)
+    tel = client.telemetry
+    client.telemetry = client.obs = None
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    req = drive_deployment(client, gen)[-1][2]
+    calls = (("write", lambda: client.write(req)),
+             ("read", lambda: client.read(req)),
+             ("stat", lambda: client.stat(req)))
+
+    def setting(name):
+        client.telemetry = tel if name == "telemetry" else None
+        client.obs = rec if name == "traced" else None
+
+    best = {}
+    for _ in range(3):
+        for name in ("plain", "traced"):
+            setting(name)
+            for call, fn in calls:
+                key = (name, call)
+                best[key] = min(best.get(key, float("inf")), host_ms(fn, 1))
+    setting("telemetry")
+    for call, fn in calls:
+        best[("telemetry", call)] = host_ms(fn, 3)
+    out = {}
+    for name in ("plain", "traced", "telemetry"):
+        setting(name)
+        for call, fn in calls:
+            st = call_profile(fn)
+            out[f"{name}_{call}"] = dict(
+                ms=best[(name, call)], launches=st["launches"],
+                syncs=st["syncs"], htod=st["htod"], dtoh=st["dtoh"],
+                busy_ms=st["busy_ms"])
+    setting("plain")
+    for name in ("traced", "telemetry"):
+        for call, _ in calls:
+            a, b = out[f"{name}_{call}"], out[f"plain_{call}"]
+            a["ratio"] = a["ms"] / b["ms"]
+            log(f"[time] {call} with {name} on: {a['ms']:.3f} ms against "
+                f"{b['ms']:.3f} ms off ({a['ratio']:.4f}x); launches "
+                f"{a['launches']} against {b['launches']}, host syncs "
+                f"{a['syncs']} against {b['syncs']}, host-to-device copies "
+                f"{a['htod']} against {b['htod']}")
+    log(f"[time] plain calls (both off): " + ", ".join(
+        f"{c} {out['plain_' + c]['launches']}/{out['plain_' + c]['syncs']}/"
+        f"{out['plain_' + c]['htod']}" for c, _ in calls) +
+        " launches/syncs/host-to-device copies")
+    spans = {s.name for s in rec.spans}
+    check({"client.write", "client.read.data", "client.meta",
+           "engine.forward_write", "exchange.plan"} <= spans,
+          f"the traced calls recorded spans {sorted(spans)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2171,7 +2707,8 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels.chunk_pack.chunk_pack import PACK_CHUNKS
     from repro_torch.kernels.chunk_router.chunk_router import (
-        DEST_BUDGETS, DEST_HISTOGRAM, ROUTE_CHUNKS_SEGMENTED, ROUTE_PLAN)
+        DEST_BUDGETS, DEST_HISTOGRAM, DEST_HISTOGRAM2D,
+        ROUTE_CHUNKS_SEGMENTED, ROUTE_PLAN)
     from repro_torch.kernels.fletcher.fletcher import (FLETCHER,
                                                        FLETCHER_SEGMENTED)
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -2204,6 +2741,17 @@ def main() -> int:
         launches.update(last["launches"])
         del deploy
         torch.cuda.empty_cache()
+        phase = "adapt"
+        adapt = phase_adapt(args.seed, {
+            c.name: c for c in (DEST_HISTOGRAM2D, PACK_CHUNKS, ROUTE_PLAN,
+                                DEST_BUDGETS)})
+        launches[DEST_HISTOGRAM2D.name] = \
+            adapt["launches"][DEST_HISTOGRAM2D.name]
+        torch.cuda.empty_cache()
+        phase = "adapt calls"
+        adapt["calls"] = phase_adapt_calls(args.seed)
+        log(json.dumps({"adapt": adapt}))
+        torch.cuda.empty_cache()
         phase = "train"
         train = phase_train(args.seed, ckpt_counters,
                             ROUTE_CHUNKS_SEGMENTED, FLETCHER_SEGMENTED,
@@ -2229,6 +2777,8 @@ def main() -> int:
             (ROUTE_PLAN, "src/repro_torch/csrc/dest_histogram2d.cu",
              "src/repro/kernels/chunk_router/chunk_router.py:133"),
             (DEST_BUDGETS, "src/repro_torch/csrc/dest_histogram2d.cu",
+             "src/repro/kernels/chunk_router/chunk_router.py:133"),
+            (DEST_HISTOGRAM2D, "src/repro_torch/csrc/dest_histogram2d.cu",
              "src/repro/kernels/chunk_router/chunk_router.py:133"),
             (PACK_CHUNKS, "src/repro_torch/csrc/pack_chunks.cu",
              "src/repro/kernels/chunk_pack/chunk_pack.py:42"),

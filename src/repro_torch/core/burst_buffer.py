@@ -29,6 +29,13 @@ Differences from the JAX engine, none visible in any result:
 * **Stranded-data broadcast.** ``_broadcast_lookup`` resolves which node
   holds each missed chunk from the key tables alone and gathers only those
   rows, instead of materialising every node's payload for every request.
+* **Re-compaction.** ``_clear_chunks`` gathers the surviving rows into a
+  new table and swaps it into the state (a gather cannot write into its
+  own source), so a relayout holds one extra data table at its peak.
+
+The entry points carry the reference's ``engine.*`` spans, and the fused
+write its ``exchange.plan/pack/apply`` spans, while a flight recorder is
+active (``repro_torch.core.obs``).
 """
 from __future__ import annotations
 
@@ -39,12 +46,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import obs
 from repro_torch.core.exchange_plan import (  # noqa: F401  (re-exports)
     COMPACTED, DENSE, LOCAL_WRITE_MODES, ExchangeConfig, RaggedSpec,
-    data_budget, fused_send, fused_write_plan, meta_budget, plan_ragged_spec,
-    run_exchange)
+    data_budget, exchange_footprint, fused_send, fused_write_plan,
+    meta_budget, plan_ragged_spec, run_exchange)
 from repro_torch.core.layouts import LayoutMode, route_data, route_meta
 from repro_torch.core.policy import LayoutPolicy, as_policy
+from repro_torch.kernels.chunk_pack.ops import gather_rows_batched
 
 EMPTY = -1
 I32 = torch.int32
@@ -353,17 +362,24 @@ def _fused_write(state: BBState, policy: LayoutPolicy, executors,
     fields_d = torch.cat([keys, payload, _ones_col(keys)], dim=-1)
     fields_m = torch.stack([op, path_hash, chunk_id + 1, loc,
                             torch.ones_like(op)], dim=-1)
-    plan_d = ex_d.plan(dest, valid)
-    plan_m = ex_m.plan(owner, valid)
-    recv_d, rv_d, recv_m, rv_m = fused_send(ex_d, plan_d, fields_d,
-                                            ex_m, plan_m, fields_m)
-    state = _append_chunks(state, recv_d[..., :2], recv_d[..., 2:2 + w],
-                           rv_d)
-    return _meta_write_apply(state, recv_m[..., 1], recv_m[..., 2],
-                             recv_m[..., 3], rv_m,
-                             create=recv_m[..., 0] == OP_CREATE)
+    with obs.span("exchange.plan", cat="trace", role="fused_write",
+                  kind="compacted"):
+        plan_d = ex_d.plan(dest, valid)
+        plan_m = ex_m.plan(owner, valid)
+    with obs.span("exchange.pack", cat="trace", role="fused_write",
+                  executor=type(ex_d).__name__):
+        recv_d, rv_d, recv_m, rv_m = fused_send(ex_d, plan_d, fields_d,
+                                                ex_m, plan_m, fields_m)
+    with obs.span("exchange.apply", cat="trace", role="fused_write"):
+        state = _append_chunks(state, recv_d[..., :2], recv_d[..., 2:2 + w],
+                               rv_d)
+        state = _meta_write_apply(state, recv_m[..., 1], recv_m[..., 2],
+                                  recv_m[..., 3], rv_m,
+                                  create=recv_m[..., 0] == OP_CREATE)
+    return state
 
 
+@obs.trace_span("engine.forward_write")
 def forward_write(state: BBState, layout, path_hash: torch.Tensor,
                   chunk_id: torch.Tensor, payload: torch.Tensor,
                   valid: torch.Tensor, mode: Optional[torch.Tensor] = None,
@@ -417,6 +433,7 @@ def forward_write(state: BBState, layout, path_hash: torch.Tensor,
     return state
 
 
+@obs.trace_span("engine.forward_read")
 def forward_read(state: BBState, layout, path_hash: torch.Tensor,
                  chunk_id: torch.Tensor, valid: torch.Tensor,
                  mode: Optional[torch.Tensor] = None,
@@ -500,6 +517,7 @@ def _broadcast_lookup(state: BBState, keys: torch.Tensor,
     return payload.masked_fill_(~found_any[..., None], 0), found_any & valid
 
 
+@obs.trace_span("engine.meta_op")
 def meta_op(state: BBState, layout, op: torch.Tensor,
             path_hash: torch.Tensor, size: torch.Tensor, loc: torch.Tensor,
             valid: torch.Tensor, mode: Optional[torch.Tensor] = None,
@@ -533,3 +551,176 @@ def meta_op(state: BBState, layout, op: torch.Tensor,
     if config.kind == "compacted" and not config.lossless:
         state.dropped += overflow
     return state, (out[..., 0] > 0) & valid, out[..., 1], out[..., 2]
+
+
+# ---------------------------------------------------------------------------
+# live relayout (online adaptation)
+#
+# The adaptation subsystem (repro_torch.core.adapt) re-decides a scope's
+# layout mode at run time and then MOVES the scope's stored chunks from
+# their old-mode placement to the new one — losslessly, in bounded
+# installments, while reads keep being served.  ``migrate_rows`` is that
+# entry point: one installment of (path, chunk) worklist rows is fetched
+# under the old epoch (full read machinery, including the hybrid meta
+# phase and the Mode-1/4 stranded-data broadcast), probed at the new
+# placement (placement-only: deliberately NO fallback), copied through the
+# regular exchange plane, and the old copies are tombstoned everywhere
+# except the new owner.  At every intermediate watermark the dual-epoch
+# read (try the new placement, fall back to the old — see ``BBClient``)
+# observes exactly the pre-migration data.
+# ---------------------------------------------------------------------------
+def _clear_chunks(state: BBState, keys: torch.Tensor,
+                  valid: torch.Tensor) -> BBState:
+    """Clear every stored version of the given keys, then re-compact.
+
+    keys: (N, m, 2); valid: (N, m).  All table slots whose (path_hash,
+    chunk_id) matches a valid request are blanked (key → EMPTY, payload
+    → 0).  ``_append_chunks`` allocates at the ``data_count`` cursor, so
+    the surviving rows are compacted to the front by a *stable* empty-last
+    argsort (relative order kept, so the newest-wins lookup still resolves
+    duplicates) and the cursor becomes the live-row count.
+
+    The re-compaction is one ``gather_rows_batched`` of the data table and
+    one of the key table (``pack_chunks`` on the card) into new tables,
+    which replace the state's: a slot past the live rows gathers index -1,
+    the kernel's zero row, which is the reference's payload blank; the
+    keys' blank is EMPTY, so they are masked after the gather.
+    """
+    tbl = state.data_keys                                     # (N, cap, 2)
+    N, cap, _ = tbl.shape
+    hit = (tbl[:, None, :, 0] == keys[:, :, None, 0]) & \
+          (tbl[:, None, :, 1] == keys[:, :, None, 1]) & \
+          (tbl[:, None, :, 0] != EMPTY) & valid[:, :, None]   # (N, m, cap)
+    keep = (tbl[..., 0] != EMPTY) & ~hit.any(dim=1)           # (N, cap)
+    ar = torch.arange(cap, device=tbl.device)[None, :]
+    order = torch.argsort(torch.where(keep, ar, cap), dim=1, stable=True)
+    kept = torch.gather(keep, 1, order)
+    idx = torch.where(kept, order, -1).to(I32)
+    new_keys = gather_rows_batched(tbl, idx)
+    state.data = gather_rows_batched(state.data, idx)
+    state.data_keys = torch.where(kept[..., None], new_keys, EMPTY).to(I32)
+    state.data_count = keep.sum(dim=1, dtype=I32)
+    return state
+
+
+def _tombstone_broadcast(state: BBState, keys: torch.Tensor,
+                         valid: torch.Tensor, keep_rank: torch.Tensor
+                         ) -> BBState:
+    """Clear old copies of migrated chunks on every node but the new owner.
+
+    keys: (L, q, 2); valid/keep_rank: (L, q) — ``keep_rank`` is the rank
+    that now holds the chunk (its copy survives).  Every node receives
+    every row (the reference's broadcast exchange, which on the stacked
+    backend is each row's requests repeated for every receiver), because
+    Mode-1/4 sources scatter copies by *writer* rank, which the migrator
+    cannot reconstruct.
+    """
+    L, q = valid.shape
+    kb = keys.reshape(1, L * q, 2).expand(L, L * q, 2)
+    vb = valid.reshape(1, L * q).expand(L, L * q)
+    pb = keep_rank.reshape(1, L * q).expand(L, L * q)
+    me = _client_ranks(L, valid.device)                       # (L, 1)
+    return _clear_chunks(state, kb, vb & (pb != me))
+
+
+@obs.trace_span("engine.migrate_rows")
+def migrate_rows(state: BBState, layout, path_hash: torch.Tensor,
+                 chunk_id: torch.Tensor, valid: torch.Tensor,
+                 old_mode: torch.Tensor, new_mode: torch.Tensor,
+                 config: ExchangeConfig = COMPACTED
+                 ) -> Tuple[BBState, torch.Tensor, torch.Tensor]:
+    """Move one installment of chunks from old-mode to new-mode placement.
+
+    path_hash/chunk_id/valid: (N, q) worklist rows; ``old_mode``/
+    ``new_mode``: (N, q) per-request ``LayoutMode`` arrays, both members
+    of the policy's ``modes_present()`` (the transition policy a
+    ``LiveMigrator`` installs guarantees this).
+
+    Returns (state, moved (N, q), found_old (N, q)); the tables are updated
+    in place.  The reference's five steps, in its order — lossless at
+    every step:
+
+    1. fetch under the old epoch (``forward_read`` with the old modes);
+       the payload is a new tensor, which steps 3 and 5 leave intact;
+    2. placement-only probe at the new destination (``routed_lookup``, NO
+       fallback), after a snapshot of the new epoch's metadata;
+    3. copy rows found old but absent new through ``forward_write`` under
+       the new modes, data only (``update_meta=False``);
+    4. move the metadata: the old entry's exact stat size to the new
+       owner (an entry in neither epoch is never resurrected), then
+       REMOVE the old entry where the owner moved;
+    5. tombstone old data copies everywhere but the new owner and
+       re-compact the node tables (``_clear_chunks``).
+
+    ``config`` must use uniform budgets: this entry point routes one
+    worklist under two mode arrays, and a ragged spec is sized for one.
+    """
+    policy = as_policy(layout)
+    if config.kind == "compacted" and (config.data_spec is not None or
+                                       config.meta_spec is not None):
+        raise ValueError(
+            "migrate_rows routes one worklist under two mode arrays; a "
+            "ragged spec sized for one of them would drop requests of the "
+            "other — use uniform budgets (lossless carry covers overflow)")
+    N = policy.n_nodes
+    client = _client_ranks(state.data.shape[0], path_hash.device)
+    old_mode, new_mode = old_mode.to(I32), new_mode.to(I32)
+    path_hash, chunk_id = path_hash.to(I32), chunk_id.to(I32)
+    keys = torch.stack([path_hash, chunk_id], dim=-1)
+    shape = path_hash.shape
+
+    def full(v):
+        return torch.full(shape, v, dtype=I32, device=path_hash.device)
+
+    # 1. old-epoch fetch
+    payload, found_old = forward_read(state, policy, path_hash, chunk_id,
+                                      valid, mode=old_mode, config=config)
+
+    # 2. the new epoch's metadata (read-only: loc resolves hybrid probe
+    # destinations; size carries an already-propagated stat size), then
+    # the placement-only probe where step 3's copy would land — or, for a
+    # HYBRID target, where the new epoch's metadata says a newer copy is
+    write_dest = route_data(new_mode, N, path_hash, chunk_id, client)
+    _, fm_new, sz_new, loc_new = meta_op(
+        state, policy, full(OP_STAT), path_hash, full(0), full(-1), valid,
+        mode=new_mode, config=config)
+    probe_dest = write_dest
+    if LayoutMode.HYBRID in policy.modes_present():
+        probe_dest = torch.where(
+            (new_mode == LayoutMode.HYBRID) & fm_new & (loc_new >= 0),
+            loc_new, write_dest)
+    _, found_new = routed_lookup(state, policy, probe_dest, keys, valid,
+                                 config)
+
+    # 3. copy the missing rows to their new placement — data only
+    moved = valid & found_old & ~found_new
+    state = forward_write(state, policy, path_hash, chunk_id, payload,
+                          moved, mode=new_mode, config=config,
+                          update_meta=False)
+
+    # 4. metadata epoch move: the old owner's exact stat size at the new
+    # owner (UPDATE upserts, restricted to rows whose metadata exists in
+    # some epoch), then the old entry gone where the owner moved
+    owner_old = route_meta(old_mode, N, policy.n_md_servers, path_hash,
+                           client)
+    owner_new = route_meta(new_mode, N, policy.n_md_servers, path_hash,
+                           client)
+    _, found_m, sz_old, _ = meta_op(
+        state, policy, full(OP_STAT), path_hash, full(0), full(-1), valid,
+        mode=old_mode, config=config)
+    size_fix = torch.where(found_m, sz_old, sz_new)
+    loc_fix = torch.where(moved & (new_mode == LayoutMode.HYBRID),
+                          torch.broadcast_to(client, shape), -1).to(I32)
+    state, _, _, _ = meta_op(
+        state, policy, full(OP_UPDATE), path_hash, size_fix, loc_fix,
+        valid & (found_m | fm_new), mode=new_mode, config=config)
+    state, _, _, _ = meta_op(
+        state, policy, full(OP_REMOVE), path_hash, full(0), full(-1),
+        valid & (owner_old != owner_new), mode=old_mode, config=config)
+
+    # 5. tombstone the old copies — keep the rank holding the surviving
+    # new-epoch copy (the write destination for rows copied now, the probe
+    # destination for rows already in place)
+    keep = torch.where(moved, write_dest, probe_dest)
+    state = _tombstone_broadcast(state, keys, valid & found_old, keep)
+    return state, moved, found_old

@@ -31,8 +31,16 @@ is again the ``pack_chunks`` gather.  A spec's static tables (budgets and
 offsets, receive rows, reply index) are copied to the card once per spec
 (``spec_tables``), so a round makes no host-to-device copy.
 
-The mesh plans (``MeshRaggedSpec``, ``PermuteExecutor``) and the modeled
-footprint are not ported yet.
+With a flight recorder active (``obs.activate``), every stage of
+``run_exchange`` records a ``cat="trace"`` span, as the reference's does:
+``exchange.plan`` → ``exchange.pack`` (wrapping an ``exchange.all_to_all``
+span where the reference calls its collective hook) → ``exchange.apply`` →
+``exchange.collect`` → ``exchange.carry`` (holding ``exchange.carry.plan``
+when the carry round runs).
+``exchange_footprint`` models the int32 elements one engine call moves.
+
+The mesh plans (``MeshRaggedSpec``, ``PermuteExecutor``) are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -40,11 +48,12 @@ import functools
 import math
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import obs
 from repro_torch.core.layouts import LayoutMode
 from repro_torch.core.policy import LayoutPolicy, as_policy
 from repro_torch.kernels.chunk_pack.ops import gather_rows, gather_rows_batched
@@ -67,6 +76,13 @@ def _extra(t: torch.Tensor, ndim: int) -> tuple:
 def stacked_exchange(x: torch.Tensor) -> torch.Tensor:
     """(N_src, N_dst, ...) → (N_dst, N_src, ...): single-device all_to_all."""
     return x.transpose(0, 1)
+
+
+def _all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """``stacked_exchange`` at the points where the reference calls its
+    collective hook, under an ``exchange.all_to_all`` span when tracing."""
+    with obs.span("exchange.all_to_all", cat="trace"):
+        return stacked_exchange(x)
 
 
 def bucketize(dest: torch.Tensor, valid: torch.Tensor, n_nodes: int,
@@ -491,8 +507,8 @@ class DenseExecutor:
     def send(self, plan: ExchangePlan, fields: torch.Tensor):
         """Broadcast-bucketize the fields; the trailing ones-column arrives
         as the receiver validity mask."""
-        rf = stacked_exchange(bucketize(plan.dest, plan.valid, self.n_nodes,
-                                        fields))                    # (L, N_src, q, F)
+        rf = _all_to_all(bucketize(plan.dest, plan.valid, self.n_nodes,
+                                   fields))                    # (L, N_src, q, F)
         L = rf.shape[0]
         return _split(rf.reshape(L, rf.shape[1] * rf.shape[2], rf.shape[3]))
 
@@ -501,8 +517,8 @@ class DenseExecutor:
         """Reply buckets travel back; each slot takes its destination's."""
         L, M = reply.shape[:2]
         q = M // self.n_nodes
-        r = stacked_exchange(reply.reshape((L, self.n_nodes, q)
-                                           + tuple(reply.shape[2:])))
+        r = _all_to_all(reply.reshape((L, self.n_nodes, q)
+                                      + tuple(reply.shape[2:])))
         return collect_replies(plan.dest, r, self.n_nodes)
 
     def served(self, plan: ExchangePlan) -> torch.Tensor:
@@ -526,7 +542,7 @@ class UniformExecutor:
 
     def send(self, plan: ExchangePlan, fields: torch.Tensor):
         """Gather into (L, N, B) budgeted buffers, one exchange."""
-        rf = stacked_exchange(_compact_gather(fields, plan.send_idx))
+        rf = _all_to_all(_compact_gather(fields, plan.send_idx))
         L = rf.shape[0]
         return _split(rf.reshape(L, rf.shape[1] * rf.shape[2], rf.shape[3]))
 
@@ -534,7 +550,7 @@ class UniformExecutor:
                 fill: int = 0) -> torch.Tensor:
         """One reply exchange, scattered through the inverse plan."""
         L, M = reply.shape[:2]
-        r = stacked_exchange(reply.reshape(
+        r = _all_to_all(reply.reshape(
             (L, self.n_nodes, M // self.n_nodes) + tuple(reply.shape[2:])))
         return compact_collect(plan.reply_idx, r, fill)
 
@@ -720,14 +736,23 @@ def fused_send(ex_d: Executor, plan_d: ExchangePlan, fields_d: torch.Tensor,
     rvalid_m)``, each plane's receive view exactly as its own
     ``Executor.send`` would have produced it.
 
-    Two ``UniformExecutor``s concatenate on the budget axis and the receiver
-    slices the planes back apart, so each plane's view is its own send.
-    Two ``RaggedExecutor``s interleave per destination segment; the static
+    Two ``UniformExecutor``s cross in one exchange (the reference
+    concatenates them on the budget axis; the receiver slices the planes
+    back apart), so each plane's view is its own send.  Two
+    ``RaggedExecutor``s interleave per destination segment; the static
     maps of ``_fused_plane_rows`` take each plane's view from its packed
     rows.
     """
     if isinstance(ex_d, UniformExecutor):
-        return (*ex_d.send(plan_d, fields_d), *ex_m.send(plan_m, fields_m))
+        sd = _compact_gather(fields_d, plan_d.send_idx)
+        sm = _compact_gather(fields_m, plan_m.send_idx)
+        with obs.span("exchange.all_to_all", cat="trace"):
+            rd, rm = stacked_exchange(sd), stacked_exchange(sm)
+        L = rd.shape[0]
+        return (*_split(rd.reshape(L, rd.shape[1] * rd.shape[2],
+                                   rd.shape[3])),
+                *_split(rm.reshape(L, rm.shape[1] * rm.shape[2],
+                                   rm.shape[3])))
     rows_d, rows_m = _fused_plane_rows(ex_d.spec, ex_m.spec,
                                        fields_d.device)
     rd = _take_rows(gather_rows_batched(fields_d, plan_d.send_idx), rows_d)
@@ -752,31 +777,110 @@ def run_exchange(role: str, policy, config: ExchangeConfig,
     3. replies are routed back to request slots;
     4. a lossless uniform under-budget plan carries its residual into a
        second round at ``carry_budget`` when any row overflowed (read from
-       the device: the eager twin of the JAX package's ``lax.cond``).
+       the device: the eager twin of the JAX package's ``lax.cond``).  The
+       residual round is planned only when it runs: the reference hoists a
+       pipelined config's plan out of the cond to overlap a compiled
+       collective, which eager PyTorch cannot use.
 
     Returns ``(state, out, served, overflow)``.
     """
-    ex = build_executor(role, policy, dest.shape[1], config)
-    plan = ex.plan(dest, valid)
-    recv, rvalid = ex.send(plan, fields)
-    new_state, reply = apply_fn(state, recv, rvalid)
+    with obs.span("exchange.plan", cat="trace", role=role,
+                  kind=config.kind):
+        ex = build_executor(role, policy, dest.shape[1], config)
+        plan = ex.plan(dest, valid)
+    with obs.span("exchange.pack", cat="trace", role=role,
+                  executor=type(ex).__name__):
+        recv, rvalid = ex.send(plan, fields)
+    with obs.span("exchange.apply", cat="trace", role=role):
+        new_state, reply = apply_fn(state, recv, rvalid)
     mutates = new_state is not None
     st = new_state if mutates else state
-    out = None if reply is None else ex.collect(plan, reply, reply_fill)
+    with obs.span("exchange.collect", cat="trace", role=role):
+        out = None if reply is None else ex.collect(plan, reply, reply_fill)
     served = ex.served(plan)
-    if ex.carry_budget and bool((plan.overflow.sum() > 0).item()):
+    if ex.carry_budget:
         resid = valid & ~served
         ex2 = UniformExecutor(ex.n_nodes, ex.carry_budget)
-        plan2 = ex2.plan(dest, resid)
-        recv2, rvalid2 = ex2.send(plan2, fields)
-        st2, reply2 = apply_fn(st, recv2, rvalid2)
-        if mutates:
-            st = st2
-        if out is not None:
-            out2 = ex2.collect(plan2, reply2, reply_fill)
-            out = torch.where(resid.reshape(resid.shape + _extra(out, 2)),
-                              out2, out)
+        with obs.span("exchange.carry", cat="trace", role=role,
+                      carry_budget=int(ex.carry_budget)):
+            if bool((plan.overflow.sum() > 0).item()):
+                with obs.span("exchange.carry.plan", cat="trace",
+                              role=role):
+                    plan2 = ex2.plan(dest, resid)
+                recv2, rvalid2 = ex2.send(plan2, fields)
+                st2, reply2 = apply_fn(st, recv2, rvalid2)
+                if mutates:
+                    st = st2
+                if out is not None:
+                    out2 = ex2.collect(plan2, reply2, reply_fill)
+                    out = torch.where(
+                        resid.reshape(resid.shape + _extra(out, 2)), out2,
+                        out)
     overflow = (plan.overflow if plan.overflow is not None
                 else torch.zeros(dest.shape[0], dtype=I32,
                                  device=dest.device))
     return st, out, served, overflow
+
+
+# ---------------------------------------------------------------------------
+# modeled footprint
+# ---------------------------------------------------------------------------
+def _spec_cols(spec: Optional[RaggedSpec], n_nodes: int,
+               uniform_b: int) -> int:
+    """Exchanged send-buffer columns per source row for one plan."""
+    if isinstance(spec, RaggedSpec):
+        return spec.total
+    return n_nodes * uniform_b
+
+
+def exchange_footprint(policy, q: int, words: int,
+                       config: ExchangeConfig) -> Dict[str, int]:
+    """Modeled int32 elements crossing the exchange per engine call (the
+    reference's model, stacked plans only).
+
+    Counts every exchanged buffer (requests, masks and replies) for one
+    write, one read (no broadcast fallback) and one metadata round.  Dense
+    buffers carry q slots per (src, dst) pair; uniform compacted ones the
+    per-destination budget; ragged ones the measured packed columns Σbᵢ
+    per source row.  A fused write ships both planes' packed columns at
+    the common row width and no metadata replies.  The ``*_carry_elems``
+    fields are the worst case of the lossless carry round (0 for measured
+    ragged plans and lossless B = q).
+    """
+    policy = as_policy(policy)
+    N = policy.n_nodes
+    if config.kind == "compacted":
+        bd, bm = data_budget(policy, q, config), meta_budget(policy, q,
+                                                             config)
+    else:
+        bd = bm = q
+    cols_d = (_spec_cols(config.data_spec, N, bd)
+              if config.kind == "compacted" else N * bd)
+    cols_m = (_spec_cols(config.meta_spec, N, bm)
+              if config.kind == "compacted" else N * bm)
+    w_meta, w_wr, w_rd = (4 + 1) + 3, (2 + words + 1), (2 + 1) + (words + 1)
+    w_fused = max(2 + words, 4) + 1           # widest plane row + mask
+    meta = N * cols_m * w_meta                # op/key/size/loc+mask → replies
+    write = N * cols_d * w_wr + meta          # keys+payload+mask, then meta
+    read = N * cols_d * w_rd
+    carry = {"write_carry_elems": 0, "read_carry_elems": 0,
+             "meta_carry_elems": 0}
+    fplan = fused_write_plan(policy, q, config)
+    if fplan is not None:
+        write = N * (cols_d + cols_m) * w_fused     # one round, no replies
+    if config.kind == "compacted" and config.lossless:
+        cd = 0 if config.data_spec is not None else _carry_budget(q, bd)
+        cm = 0 if config.meta_spec is not None else _carry_budget(q, bm)
+        if config.carry_budget_hint is not None:
+            cd = min(cd, max(0, int(config.carry_budget_hint)))
+            cm = min(cm, max(0, int(config.carry_budget_hint)))
+        wc = N * N * cd * w_wr + N * N * cm * w_meta
+        if fplan is not None:
+            wc = 0          # fused plans are overflow-free by construction
+        carry = {"write_carry_elems": wc,
+                 "read_carry_elems": N * N * cd * w_rd,
+                 "meta_carry_elems": N * N * cm * w_meta}
+    return {"kind": config.kind, "data_budget": bd, "meta_budget": bm,
+            "lossless": config.lossless,
+            "write_elems": write, "read_elems": read, "meta_elems": meta,
+            **carry}

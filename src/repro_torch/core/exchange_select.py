@@ -12,9 +12,10 @@ the reference picks, on any machine.  Both planes are exact, so a pick
 costs time, never correctness; a crossover measured on the card is not
 here yet (ROADMAP Queue 1 item 3).
 
-The reference emits an audit record at each load and pick
-(``record_decision``); the port has no flight recorder yet (ROADMAP Queue 1
-item 1), so those points carry a comment and nothing else.
+Each load and pick emits an audit record (``record_decision``) as the
+reference's does: ``crossover_load`` / ``crossover_fallback``,
+``fabric_load`` / ``fabric_fallback`` once per cache fill, and one
+``exchange_backend`` record per pick.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import math
 from functools import lru_cache
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
+
+from repro_torch.core.obs import record_decision
 
 #: benchmark artifacts searched for crossover rows, newest first
 BENCH_FILES = ("BENCH_pr3.json", "BENCH_pr2.json")
@@ -103,11 +106,13 @@ def load_crossover(root: Optional[str] = None
     ``FALLBACK_TABLE`` when nothing usable is on disk.  Cached per process.
     """
     roots = (Path(root),) if root is not None else _bench_roots()
+    seen = []
     for r in roots:
         for name in BENCH_FILES:
             p = r / name
             if not p.is_file():
                 continue
+            seen.append(name)
             try:
                 data = json.loads(p.read_text())
                 rows = data.get("rows", []) if isinstance(data, dict) else []
@@ -115,9 +120,17 @@ def load_crossover(root: Optional[str] = None
                 continue
             table = crossover_table(rows)
             if table:
-                # the reference records a crossover_load audit here
+                record_decision(
+                    "crossover_load", name,
+                    inputs={"cells": len(table), "root": str(r)},
+                    evidence={"grade": "measured", "source": name})
                 return table
-    # the reference records a crossover_fallback audit here
+    record_decision(
+        "crossover_fallback", "fallback_table",
+        inputs={"reason": "malformed" if seen else "missing",
+                "searched": list(BENCH_FILES), "artifacts_seen": seen,
+                "roots": [str(r) for r in roots]},
+        evidence={"grade": "fallback", "source": "FALLBACK_TABLE"})
     return FALLBACK_TABLE
 
 
@@ -165,11 +178,13 @@ def fabric_model(root: Optional[str] = None) -> Tuple[float, float, bool]:
     else the analytic ``FALLBACK_FABRIC`` with ``measured? = False``.
     Cached per process."""
     roots = (Path(root),) if root is not None else _bench_roots()
+    seen = []
     for r in roots:
         for name in FABRIC_FILES:
             p = r / name
             if not p.is_file():
                 continue
+            seen.append(name)
             try:
                 data = json.loads(p.read_text())
             except (OSError, ValueError):
@@ -178,9 +193,19 @@ def fabric_model(root: Optional[str] = None) -> Tuple[float, float, bool]:
             rows = fab.get("rows") if isinstance(fab, dict) else None
             fit = _fit_fabric(rows) if isinstance(rows, list) else None
             if fit is not None:
-                # the reference records a fabric_load audit here
+                record_decision(
+                    "fabric_load", name,
+                    inputs={"a_us": fit[0], "bytes_per_us": fit[1],
+                            "root": str(r)},
+                    evidence={"grade": "measured", "source": name})
                 return fit[0], fit[1], True
-    # the reference records a fabric_fallback audit here
+    record_decision(
+        "fabric_fallback", "analytic",
+        inputs={"reason": "malformed" if seen else "missing",
+                "searched": list(FABRIC_FILES), "artifacts_seen": seen,
+                "a_us": FALLBACK_FABRIC[0],
+                "bytes_per_us": FALLBACK_FABRIC[1]},
+        evidence={"grade": "fallback", "source": "FALLBACK_FABRIC"})
     return FALLBACK_FABRIC[0], FALLBACK_FABRIC[1], False
 
 
@@ -238,23 +263,44 @@ def pick_backend(n_nodes: int, q: int, words: int,
     cannot be fit, or with an explicit ``table`` (the leave-one-out
     harness passes one), the winner of the nearest table cell in
     log-(N, q, words) space.
+
+    Every pick emits an ``exchange_backend`` audit record naming the
+    deciding ``oracle`` ("fabric_model" or "nearest_cell"); its
+    alternatives carry the nearest-cell log-space distance of each losing
+    backend.
     """
     explicit = table is not None
     table = table if explicit else load_crossover()
-    choice = None
+    oracle, choice, stump = "nearest_cell", None, {}
     if not explicit:
         model = fabric_model()
         thr = _stump_threshold(table, model[1])
         if thr is not None:
             excess = _dense_excess_us(n_nodes, q, words, model[1])
             choice = "compacted" if excess > thr else "dense"
+            oracle = "fabric_model"
+            stump = {"excess_us": excess, "threshold_us": thr,
+                     "fabric_measured": bool(model[2])}
+    best, best_d = "compacted", None
+    near: Dict[str, float] = {}
+    for ni, qi, wi, winner in table:
+        d = (math.log(max(n_nodes, 1) / ni) ** 2 +
+             math.log(max(q, 1) / qi) ** 2 +
+             math.log(max(words, 1) / wi) ** 2)
+        if winner not in near or d < near[winner]:
+            near[winner] = d
+        if best_d is None or d < best_d:
+            best, best_d = winner, d
     if choice is None:
-        best_d, choice = None, "compacted"
-        for ni, qi, wi, winner in table:
-            d = (math.log(max(n_nodes, 1) / ni) ** 2 +
-                 math.log(max(q, 1) / qi) ** 2 +
-                 math.log(max(words, 1) / wi) ** 2)
-            if best_d is None or d < best_d:
-                best_d, choice = d, winner
-    # the reference records an exchange_backend audit of the pick here
+        choice = best
+    record_decision(
+        "exchange_backend", choice,
+        inputs={"n_nodes": int(n_nodes), "q": int(q), "words": int(words),
+                "table_cells": len(table),
+                "distance": best_d if best_d is not None else -1.0,
+                **stump},
+        alternatives={k: v for k, v in near.items() if k != choice},
+        evidence={"grade": ("fallback" if table is FALLBACK_TABLE
+                            else "measured"),
+                  "source": "crossover_table", "oracle": oracle})
     return choice

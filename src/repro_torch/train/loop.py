@@ -8,7 +8,9 @@ event for event, so the same ``FailurePlan`` gives the same ``FailureLog``.
 
 The train state lives on the card unless ``device`` is given; its
 checkpoints are checksummed and routed there (``CheckpointManager``).
-Online adaptation (``LoopConfig.adapt_controller``) is not ported yet.
+``LoopConfig.adapt_controller`` ticks an ``AdaptationController`` on the
+step cadence; when a tick adopts a new per-scope plan, the checkpoint
+manager follows it.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core import obs
 from repro_torch.core.layouts import LayoutMode
 from repro_torch.core.policy import LayoutPolicy
 from repro_torch.data.pipeline import TokenPipeline
@@ -40,8 +43,9 @@ class LoopConfig:
     layout_policy: Optional[LayoutPolicy] = None
     n_bb_nodes: int = 8
     microbatches: int = 1
-    # online adaptation: not ported yet (ROADMAP Queue 1 item 2); setting
-    # a controller raises NotImplementedError
+    # online adaptation (repro_torch.core.adapt): an AdaptationController
+    # whose tick() runs every adapt_every steps; when it adopts a new
+    # per-scope plan, the checkpoint manager follows it (set_policy)
     adapt_controller: Optional[object] = None
     adapt_every: int = 0
 
@@ -68,9 +72,6 @@ def run_training(model, cfg, batch_size: int, seq_len: int,
                  loop_cfg: LoopConfig, optimizer: Optional[AdamW] = None,
                  failure_plan: Optional[FailurePlan] = None,
                  seed: int = 0, device=None) -> LoopResult:
-    if loop_cfg.adapt_controller is not None:
-        raise NotImplementedError(
-            "online adaptation is not ported yet (ROADMAP Queue 1 item 2)")
     dev = resolve_device(device)
     optimizer = optimizer or AdamW(warmup_steps=5, total_steps=loop_cfg.steps)
     failure_plan = failure_plan or FailurePlan()
@@ -143,6 +144,17 @@ def run_training(model, cfg, batch_size: int, seq_len: int,
 
             if step % loop_cfg.ckpt_every == 0:
                 ckpt.save(step, (params, opt_state, _cursor(pipeline, dev)))
+
+            ctl = loop_cfg.adapt_controller
+            if ctl is not None and loop_cfg.adapt_every and \
+                    step % loop_cfg.adapt_every == 0:
+                # drift-tick span on the adapting client's recorder (if any)
+                with obs.activate(getattr(ctl.client, "obs", None)), \
+                        obs.span("train.adapt_tick", cat="train", step=step):
+                    report = ctl.tick()
+                if report.phase in ("adopted", "completed"):
+                    # checkpoint traffic follows the adapted per-scope plan
+                    ckpt.set_policy(ctl.client.policy)
         ckpt.wait()
     result.final_step = step
     result.failure_log = log

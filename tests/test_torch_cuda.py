@@ -602,3 +602,166 @@ def test_cuda_flash_attention_rejects_unsupported_input(cuda):
     y = torch.zeros((1, 64, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention(y, y.to(torch.bfloat16), y)
+
+
+# ---------------------------------------------------------------------------
+# online adaptation on the card: telemetry, re-compaction, the relayout
+# stream (tests/test_torch_adapt.py holds the same streams on the CPU
+# against the JAX package)
+# ---------------------------------------------------------------------------
+ADAPT_SCOPE = "/bb/hot"
+ADAPT_SCOPES = {ADAPT_SCOPE: 1, "/bb/h": 4}      # NODE_LOCAL, HYBRID
+# tests/test_adapt.py's frozen observables of the interleaved stream
+STREAM_DIGEST = "cfd76da6b40767fb96d3095ded4fbb01"
+
+
+def adapt_digest(*arrays) -> str:
+    """sha256 of the observables' bytes, 32 hex digits (test_adapt's)."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:32]
+
+
+def mixed_stream(client, raw_request, seed=11, n=8, w=8):
+    """Two scopes and the default row, random validity, repeated paths,
+    widths 12 and 1, every op, then an unscoped request built by
+    ``raw_request(path_hash, chunk_id)`` (numpy int32 (n, 4) each)."""
+    rng = np.random.RandomState(seed)
+    for step in range(4):
+        q = (12, 1, 12, 12)[step]
+        paths = [[(f"{ADAPT_SCOPE}/r{i}/f{j % 3}", f"/bb/h/g{(i + j) % 4}",
+                   f"/other/x{j}")[(i + j + step) % 3] for j in range(q)]
+                 for i in range(n)]
+        cid = rng.randint(0, 20, (n, q)).astype(np.int32)
+        pay = rng.randint(0, 999, (n, q, w)).astype(np.int32)
+        valid = rng.rand(n, q) > 0.25
+        req = client.encode(paths, chunk_id=cid, payload=pay, valid=valid)
+        client.write(req)
+        client.read(req)
+        client.stat(req)
+    ph = rng.randint(1, 1 << 20, (n, 4)).astype(np.int32)
+    client.read(raw_request(ph, np.zeros((n, 4), np.int32)))
+    return client
+
+
+def interleaved_stream(relayout, new_mode=3, device="cpu"):
+    """``tests/test_adapt.py::_interleaved_stream`` through the port on
+    ``device``: returns (client, observables)."""
+    from repro_torch.core.adapt import LiveMigrator
+    from repro_torch.core.client import BBClient, BBRequest
+    from repro_torch.core.policy import LayoutPolicy
+    n, q, w = 8, 6, 8
+    client = BBClient(LayoutPolicy.from_scopes({ADAPT_SCOPE: 1}, n_nodes=n,
+                                               default=3),
+                      device=device, cap=256, words=w, mcap=256,
+                      telemetry=True)
+    rng = np.random.RandomState(7)
+    outs, reqs = [], []
+    for _ in range(3):
+        paths = [[f"{ADAPT_SCOPE}/r{i}/f{j % 2}" for j in range(q)]
+                 for i in range(n)]
+        shared = [[f"/shared/g{j}" for j in range(q)] for _ in range(n)]
+        cid = rng.randint(0, 4, (n, q)).astype(np.int32)
+        pay = rng.randint(0, 9999, (n, q, w)).astype(np.int32)
+        wreq = client.encode(paths, chunk_id=cid, payload=pay)
+        client.write(wreq)
+        client.write(client.encode(shared, chunk_id=cid, payload=pay))
+        reqs.append(wreq)
+    mig = None
+    if relayout:
+        mig = LiveMigrator(client, ADAPT_SCOPE, new_mode, step_chunks=8)
+        assert mig.total_chunks > 0
+    perm = torch.as_tensor(np.roll(np.arange(n), 3), device=client.device)
+    for step in range(12):
+        base = reqs[step % len(reqs)]
+        out, found = client.read(BBRequest(
+            path_hash=base.path_hash[perm], chunk_id=base.chunk_id[perm],
+            scope_hash=base.scope_hash[perm]))
+        fnd, size, _ = client.stat(base)
+        outs += [out, found, fnd, size]
+        if mig is not None and not mig.done:
+            mig.step()
+            if mig.done:
+                mig.finish()
+    if mig is not None and mig.done and client.fallback is not None:
+        mig.finish()
+    return client, outs
+
+
+def _port_raw_request(device):
+    from repro_torch.core.client import BBRequest
+    return lambda ph, cid: BBRequest(
+        path_hash=torch.as_tensor(ph, device=device),
+        chunk_id=torch.as_tensor(cid, device=device))
+
+
+@pytest.mark.cuda
+def test_cuda_telemetry_counters_match_the_cpu(cuda):
+    """The same stream's counters on the card equal the port's CPU
+    counters (integer-valued columns exact, pressure within 1e-6
+    relative) and are identical on a second run; each record launches
+    one counts-only dest_histogram2d."""
+    from repro_torch.core.adapt import telemetry as tm
+    from repro_torch.core.client import BBClient
+    from repro_torch.core.policy import LayoutPolicy
+
+    def run(device):
+        client = BBClient(LayoutPolicy.from_scopes(ADAPT_SCOPES, n_nodes=8,
+                                                   default=2),
+                          device=device, cap=256, words=8, mcap=256,
+                          telemetry=True, capacity=0.5)
+        return mixed_stream(client, _port_raw_request(device)
+                            ).telemetry.snapshot()
+
+    before = DEST_HISTOGRAM2D.launches
+    card = run(cuda)
+    assert DEST_HISTOGRAM2D.launches - before == 13     # one per record
+    cpu = run("cpu")
+    cols = [c for c in range(tm.N_FEATURES) if c != tm.F_PRESSURE]
+    np.testing.assert_array_equal(card[:, cols], cpu[:, cols])
+    np.testing.assert_allclose(card[:, tm.F_PRESSURE], cpu[:, tm.F_PRESSURE],
+                               rtol=1e-6, atol=0)
+    assert card[:, tm.F_PRESSURE].sum() > 0
+    np.testing.assert_array_equal(run(cuda), card)
+
+
+@pytest.mark.cuda
+def test_cuda_clear_chunks_matches_plain(cuda):
+    """The re-compaction gathers the data and key tables through
+    pack_chunks, bit for bit with the plain version on the CPU."""
+    from repro_torch.core import burst_buffer as bb
+    n, cap, w, m = 8, 64, 33, 40
+    rng = np.random.RandomState(3)
+    keys = rng.randint(0, 6, (n, cap, 2)).astype(np.int32)
+    keys[rng.rand(n, cap) < 0.3] = -1
+    tables = [rng.randint(-2 ** 31, 2 ** 31 - 1, (n, cap, w)).astype(
+        np.int32), keys, (keys[..., 0] >= 0).sum(1).astype(np.int32)] + \
+        [np.zeros((n, 16), np.int32)] * 3 + [np.zeros(n, np.int32)] * 2
+    q_keys = rng.randint(0, 6, (n, m, 2)).astype(np.int32)
+    valid = rng.rand(n, m) > 0.3
+    out = {}
+    for dev in (cuda, "cpu"):
+        state = bb.from_jax_state(tables, device=dev)
+        before = PACK_CHUNKS.launches
+        bb._clear_chunks(state, torch.as_tensor(q_keys, device=dev),
+                         torch.as_tensor(valid, device=dev))
+        if dev != "cpu":
+            assert PACK_CHUNKS.launches - before == 2
+        out[str(dev)] = bb.to_numpy(state)
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    assert out["cpu"][2].sum() < tables[2].sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("new_mode", [3, 4])
+def test_cuda_relayout_stream_digest(cuda, new_mode):
+    """The pinned interleaved stream on the card, without and with a live
+    relayout, reproduces the reference's digest."""
+    _, plain = interleaved_stream(False, device=cuda)
+    client, migrated = interleaved_stream(True, new_mode, device=cuda)
+    assert adapt_digest(*plain) == adapt_digest(*migrated) == STREAM_DIGEST
+    assert client.epoch == 2 and client.fallback is None

@@ -44,10 +44,13 @@ def test_importing_the_port_loads_no_jax_module():
         import sys
         for m in {mods!r}:
             __import__(m)
+        import repro_torch.core.adapt, repro_torch.core.obs
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib")
                      or m == "repro" or m.startswith("repro."))
         assert not bad, bad
+        assert "repro_torch.core.adapt.controller" in sys.modules
+        assert "repro_torch.core.obs.recorder" in sys.modules
         from repro_torch import kernels
         assert not kernels._LIBS, "a kernel was built at import time"
         print("ok", len({mods!r}))

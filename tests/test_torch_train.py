@@ -397,11 +397,29 @@ def JPolicy_from(scopes, n_nodes, default):
 
 
 def test_run_training_refuses_adaptation_until_ported():
+    """Adaptation is ported: the loop takes a controller and ticks it
+    every ``adapt_every`` steps only (0 never ticks it, as in the
+    reference); tests/test_torch_adapt.py holds the ticks' effect."""
     _, t = _cfgs("bfloat16")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        run_training(build_model(t), t, 4, 16,
-                     LoopConfig(steps=1, adapt_controller=object()),
-                     device="cpu")
+
+    class Ticks:
+        client = None
+
+        def __init__(self):
+            self.steps = []
+
+        def tick(self):
+            self.steps.append(len(self.steps))
+            return type("R", (), {"phase": "idle"})()
+
+    never, every = Ticks(), Ticks()
+    for ctl, adapt_every in ((never, 0), (every, 1)):
+        res = run_training(build_model(t), t, 4, 16,
+                           LoopConfig(steps=2, adapt_controller=ctl,
+                                      adapt_every=adapt_every),
+                           device="cpu")
+        assert res.final_step == 2
+    assert never.steps == [] and every.steps == [0, 1]
 
 
 def test_other_families_raise_not_implemented():
