@@ -107,6 +107,35 @@ Phases, each of which must succeed or the run fails without a result line:
       peak memory; then the deployment's write, read and stat with
       telemetry and tracing each turned on and off in place (latency,
       launches, syncs, copies);
+  (h) the decision pipeline (``core/intent``, ``core/workloads.py``,
+      ``launch/train.py``): ``select_layout`` over ``build_workloads(32)``
+      under the four settings of ``tests/test_intent.py`` (accuracy 21,
+      20, 19 and 15 of 23) with the 23 whole-job modes and confidences
+      pinned to the JAX package's (``DECISIONS``), the adversarial corpus
+      (6 of 6) and the heterogeneous plan (``/bb/ckpt`` NODE_LOCAL,
+      ``/bb/shared`` HYBRID, default HYBRID), with the host ms of one
+      decision and of the matrix; the probe's engine replay of every
+      workload on the card (counters as the shim's, ``route_plan``
+      launched, every write and read — its outputs and the node tables
+      after it — equal to the same replay on the CPU, bit for bit); then every decided layout executed at the deployment's
+      width, one 8 GiB table at a time: the heterogeneous plan (a 4 MiB
+      checkpoint and 4 one-chunk shared files a node in one fused write,
+      creates and stats, reads of the node's own checkpoint and of its
+      ring neighbour's shared files) and a uniform policy of each
+      whole-job mode decided (phase c's batch: a write, a ring-permuted
+      cross-node read, a stat), every read bit for bit, stat sizes as the
+      layout keeps them, ``route_plan``, ``dest_budgets`` and
+      ``pack_chunks`` (zeroed just before) launched, one ``route_plan`` a
+      round and one ``dest_budgets`` a spec, and each call's latency,
+      launches, syncs and copies; phase e2's adopted ``/bb/hot``
+      signature through ``signature_workload`` and the selector; and the
+      launcher, ``repro_torch.launch.train.main`` with ``--full``
+      gemma3-1b (its own batch of 8 x 128 tokens, a save every 2 steps,
+      as many saves as host RAM holds, up to 2): it prints the decision
+      Mode 1, trains to its last step with finite losses, and makes one
+      ``fletcher_segmented`` and one ``route_chunks_segmented`` launch a
+      save (zeroed just before); its wall time beside one
+      ``select_layout`` of the launcher's workload;
   (f) training: ``run_training`` with gemma3-1b at full width (26 layers,
       d 1152, vocab 262144, 999,812,736 params, bf16 compute, f32 params),
       batch 4 × 1024 tokens, checkpoints every 2 steps through the
@@ -214,6 +243,35 @@ ADAPT_READS = 12                           # cross-rank reads, a tick each
 ADAPT_DRIFT = dict(patience=2, cooldown=3, min_weight=4.0)
 ADAPT_HORIZON, ADAPT_STEP, ADAPT_PER_TICK = 1e4, 256, 4
 STREAM_DIGEST = "cfd76da6b40767fb96d3095ded4fbb01"
+
+# (h) the decision pipeline: the JAX package's whole-job decisions over
+# build_workloads(32) (mode, confidence), its accuracies against the
+# oracle under tests/test_intent.py's four settings, and its per-scope
+# plan of heterogeneous_workload(32) (scope modes, default), pinned here
+# as phase f pins the FailureLog
+# (tests/test_torch_intent.py::test_chip_smoke_decision_matrix_pinned_to_reference)
+DECISIONS = {
+    "IOR-A": (1, 0.95), "IOR-B": (2, 0.85), "IOR-C": (4, 0.72),
+    "IOR-D": (4, 0.9), "FIO-A": (1, 0.95), "FIO-C": (4, 0.78),
+    "FIO-D": (4, 0.84), "FIO-E10": (4, 0.84), "FIO-E50": (3, 0.55),
+    "FIO-E90": (3, 0.85), "HACC-A": (4, 0.82), "HACC-B": (2, 0.85),
+    "HACC-C": (2, 0.92), "MAD-A": (4, 0.82), "MAD-B": (1, 0.95),
+    "MAD-C": (4, 0.72), "MDTEST-A": (4, 0.86), "MDTEST-B": (2, 0.92),
+    "MDTEST-C": (2, 0.92), "MDTEST-D": (4, 0.86), "S3D-A": (4, 0.9),
+    "S3D-B": (2, 0.85), "S3D-C": (2, 0.74),
+}
+DECIDE_SETTINGS = {"full": {}, "wo-runtime": {"use_runtime": False},
+                   "wo-appref": {"use_app_ref": False},
+                   "wo-modeknow": {"use_mode_know": False}}
+ACCURACY = {"full": (21, 23), "wo-runtime": (20, 23),
+            "wo-appref": (19, 23), "wo-modeknow": (15, 23)}
+HETERO_PLAN = ({"/bb/ckpt": 1, "/bb/shared": 4}, 4)
+HETERO_CKPT, HETERO_SHARED = 4, 4      # per node: chunks, one-chunk files
+# the launcher: gemma3-1b at full width under its own batch defaults (8 x
+# 128 tokens), a save every LAUNCH_CKPT_EVERY steps, as many saves (up to
+# LAUNCH_SAVES) as host RAM holds beside LAUNCH_RESERVE_GIB
+LAUNCH_ARGS = ["--full", "--arch", TRAIN_ARCH]
+LAUNCH_CKPT_EVERY, LAUNCH_SAVES, LAUNCH_RESERVE_GIB = 2, 2, 24.0
 
 # SHA-256 digests pinned by the JAX package's tests (tests/test_policy.py,
 # SEED_DIGESTS: the seed engine's outputs for the fixed trace of
@@ -329,8 +387,9 @@ def batch_paths(step: int):
     return paths, np.asarray(cids, np.int32)
 
 
-def expected_sizes(cids: np.ndarray) -> np.ndarray:
-    size = np.empty_like(cids)
+def expected_sizes() -> np.ndarray:
+    """Stat sizes of ``batch_paths``' files, in chunks."""
+    size = np.empty((N_NODES, Q), np.int32)
     size[:, :4], size[:, 4:6], size[:, 6:] = 4, 2 * N_NODES, 2
     return size
 
@@ -436,6 +495,9 @@ def phase_kernels_vs_plain(seed: int) -> dict:
     for (n, m, w), dtype in (((8, 259, 4), torch.int32),
                              ((100, 333, 16), torch.float32),
                              ((3, 7, 1), torch.int32),
+                             ((32, 32, 8), torch.int32),   # probe replay
+                             ((32, 32, 11), torch.int32),
+                             ((8 * 256, 32, 8), torch.int32),
                              ((64, 64, WORDS + 3), torch.float32)):
         payload = torch.randn((n, w), device=dev).mul_(1e4).to(dtype)
         payload[0] = 7777                     # poison: pads must not read it
@@ -453,8 +515,9 @@ def planner_vs_plain(inp: dict, rng: np.random.RandomState,
     bit for bit: the first write's data plane (its measured spec's table),
     then the sweep of the CPU tests (N 1/8/32/64 × q 0/1/8/33/100, rows
     all invalid, skewed rows, destinations outside [0, N); uniform budgets
-    {1, 3, q}, the measured ones, one below them, random ones) and
-    (32, 1024) at 256 nodes, (32, 100) at 2048 nodes, (3, 40) at 49,999."""
+    {1, 3, q}, the measured ones, one below them, random ones), (8, 4) at
+    8 nodes (the probe's replay), (32, 1024) at 256 nodes, (32, 100) at
+    2048 nodes and (3, 40) at 49,999."""
     from repro_torch.kernels.chunk_router.chunk_router import (dest_budgets,
                                                               route_plan)
     from repro_torch.kernels.chunk_router.ref import (dest_budgets_ref,
@@ -488,7 +551,7 @@ def planner_vs_plain(inp: dict, rng: np.random.RandomState,
         f"(32, 8), N {N_NODES}, total {inp['spec'].total}): equal")
     shapes = ([(n + 2, q, n) for n in (1, 8, 32, 64)
                for q in (0, 1, 8, 33, 100)] +
-              [(32, 1024, 256), (32, 100, 2048), (3, 40, 49999)])
+              [(8, 4, 8), (32, 1024, 256), (32, 100, 2048), (3, 40, 49999)])
     for L, q, n in shapes:
         for skewed in (False, True):
             dest = rng.randint(-1, n + 1, (L, q)).astype(np.int32)
@@ -1333,35 +1396,51 @@ class PlannerCalls:
             setattr(mod, name, fn)
 
 
-def drive_deployment(client, gen: torch.Generator) -> list:
-    """The deployment's calls and checks: three fused writes, cross-node
-    two-phase reads and stats of each, create, remove; returns the writes'
-    (paths, chunk ids, request)."""
+def write_read_stat(client, gen: torch.Generator, n_writes: int,
+                    sizes: np.ndarray, writer_cols: int, label: str) -> list:
+    """``n_writes`` fused writes of the deployment's batch, then for each
+    the ring-permuted cross-node read (node r reads what node r+1 wrote),
+    bit for bit, and a stat: every file found with ``sizes``, the data of
+    the first ``writer_cols`` columns at their writer.  Returns the
+    writes' (paths, chunk ids, request, read request)."""
     batches = []
-    for step in range(N_WRITES):
+    for step in range(n_writes):
         paths, cids = batch_paths(step)
         req = client.encode(paths, chunk_id=cids)
         req.payload = random_payload(gen)
         client.write(req)
         batches.append((paths, cids, req))
     torch.cuda.synchronize()
-    check(int(client.state.dropped.sum()) == 0, "writes were dropped")
+    check(int(client.state.dropped.sum()) == 0, f"{label}: writes dropped")
+    out = []
+    ranks = np.broadcast_to(np.arange(N_NODES)[:, None],
+                            (N_NODES, writer_cols))
     for step, (paths, cids, req) in enumerate(batches):
-        # node r reads what node r+1 wrote: hybrid chunks are remote, so
-        # the read runs the metadata probe, then the measured data round
+        # hybrid chunks are remote, so the read runs the metadata probe,
+        # then the measured data round
         rot = [paths[(r + 1) % N_NODES] for r in range(N_NODES)]
         rreq = client.encode(rot, chunk_id=np.roll(cids, -1, axis=0))
-        out, found = client.read(rreq)
-        check(bool(found.all()), f"write {step}: chunks not found")
-        check(torch.equal(out, torch.roll(req.payload, -1, dims=0)),
-              f"write {step}: read-back differs from the written payload")
+        data, found = client.read(rreq)
+        check(bool(found.all()), f"{label} write {step}: chunks not found")
+        check(torch.equal(data, torch.roll(req.payload, -1, dims=0)),
+              f"{label} write {step}: read-back differs from the written "
+              f"payload")
         found, size, loc = client.stat(req)
-        check(bool(found.all()), f"write {step}: stat misses a file")
-        check(np.array_equal(size.cpu().numpy(), expected_sizes(cids)),
-              f"write {step}: stat sizes wrong")
-        ranks = np.broadcast_to(np.arange(N_NODES)[:, None], (N_NODES, 4))
-        check(np.array_equal(loc[:, :4].cpu().numpy(), ranks),
-              f"write {step}: hybrid data location is not the writer")
+        check(bool(found.all()) and np.array_equal(size.cpu().numpy(),
+                                                   sizes),
+              f"{label} write {step}: stat misses a file or its size")
+        check(np.array_equal(loc[:, :writer_cols].cpu().numpy(), ranks),
+              f"{label} write {step}: data location is not the writer")
+        out.append((paths, cids, req, rreq))
+    return out
+
+
+def drive_deployment(client, gen: torch.Generator) -> list:
+    """The deployment's calls and checks: three fused writes, cross-node
+    two-phase reads and stats of each (hybrid checkpoint data at its
+    writer), create, remove; returns ``write_read_stat``'s batches."""
+    batches = write_read_stat(client, gen, N_WRITES, expected_sizes(), 4,
+                              "deploy")
     new = client.encode([[f"/bb/ckpt/rank{r}/new{j}" if j % 2 else
                           f"/bb/run/rank{r}/new{j}" for j in range(Q)]
                          for r in range(N_NODES)])
@@ -1369,7 +1448,7 @@ def drive_deployment(client, gen: torch.Generator) -> list:
     found, size, _ = client.stat(new)
     check(bool(found.all()) and not bool(size.any()),
           "created files not found with size 0")
-    _, _, req0 = batches[0]
+    req0 = batches[0][2]
     check(bool(client.remove(req0).all()), "remove missed a file")
     found, _, _ = client.stat(req0)
     check(not bool(found.any()), "removed files still found")
@@ -1378,42 +1457,53 @@ def drive_deployment(client, gen: torch.Generator) -> list:
     return batches
 
 
-def phase_deployment(seed: int, counters, plan_counter,
-                     spec_counter) -> dict:
-    """``counters`` are every data-plane kernel's (each must launch);
-    ``plan_counter`` must launch exactly once a routing round and
-    ``spec_counter`` once a measured spec."""
+def counted_drive(name: str, policy, drive, counters, gen):
+    """A fresh client under ``policy`` at the deployment's width, driven by
+    ``drive(client, gen)`` with the data plane's launch counts
+    (``counters``: route_plan, dest_budgets, pack_chunks) zeroed just
+    before: each must be above 0, with one ``route_plan`` a routing round
+    and one ``dest_budgets`` a measured spec.  Returns the client, the
+    drive's result, the launches and the ``PlannerCalls``."""
     from repro_torch.core.client import BBClient
-    client = BBClient(deployment_policy(), cap=CAP, words=WORDS, mcap=MCAP)
-    check(client.device.type == DEVICE, "client tables not on the card")
+    client = BBClient(policy, cap=CAP, words=WORDS, mcap=MCAP)
+    check(client.device.type == DEVICE, f"{name}: tables not on the card")
+    for c in counters:
+        c.launches = 0
+    with PlannerCalls() as planner:
+        res = drive(client, gen)
+        torch.cuda.synchronize()
+        launches = {c.name: c.launches for c in counters}
+    for k, n in launches.items():
+        check(n > 0, f"{name}: {k} never launched on the main path")
+    check(launches["route_plan"] == planner.rounds,
+          f"{name}: {planner.rounds} routing rounds made "
+          f"{launches['route_plan']} route_plan launches, not one each")
+    check(launches["dest_budgets"] == planner.specs,
+          f"{name}: {planner.specs} measured specs made "
+          f"{launches['dest_budgets']} dest_budgets launches, not one each")
+    return client, res, launches, planner
+
+
+def phase_deployment(seed: int, counters) -> dict:
+    """``counters`` are every data-plane kernel's (route_plan,
+    dest_budgets, pack_chunks), held by ``counted_drive``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    client, batches, launches, planner = counted_drive(
+        "deploy", deployment_policy(), drive_deployment, counters, gen)
+    wall = time.perf_counter() - t0
     kind = client._select_kind(Q)
     check(kind == "compacted", f"exchange auto picked {kind}, not compacted")
     log(f"[deploy] N={N_NODES} cap={CAP} mcap={MCAP} words={WORDS} q={Q}; "
         f"data table {client.state.data.numel() * 4 / 2 ** 30:.2f} GiB; "
         f"exchange auto -> {kind}")
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    with PlannerCalls() as planner:
-        t0 = time.perf_counter()
-        batches = drive_deployment(client, gen)
-        torch.cuda.synchronize()
-        launches = {c.name: c.launches for c in counters}
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
-    check(plan_counter.launches == planner.rounds,
-          f"{planner.rounds} routing rounds made {plan_counter.launches} "
-          f"{plan_counter.name} launches, not one each")
-    check(spec_counter.launches == planner.specs,
-          f"{planner.specs} measured specs made {spec_counter.launches} "
-          f"{spec_counter.name} launches, not one each")
     log(f"[deploy] planner: {planner.rounds} routing rounds, one "
-        f"{plan_counter.name} launch each; {planner.specs} measured specs, "
-        f"one {spec_counter.name} launch each")
+        f"route_plan launch each; {planner.specs} measured specs, one "
+        f"dest_budgets launch each")
     log(f"[deploy] {N_WRITES} fused writes ({N_WRITES * N_NODES * Q} chunks, "
         f"{N_WRITES * N_NODES * Q} MiB), {N_WRITES} reads, stats, create, "
-        f"remove: all checks hold in {time.perf_counter() - t0:.2f} s")
+        f"remove: all checks hold in {wall:.2f} s (client made included)")
     log(f"[deploy] launches on the data-plane path: {launches}")
     log(f"[deploy] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -1760,7 +1850,7 @@ def phase_timings(seed: int, deploy: dict) -> dict:
 
     # the client, end to end (tables already hold the deployment's writes)
     client = deploy["client"]
-    paths, cids, req = deploy["batches"][-1]
+    paths, cids, req, _ = deploy["batches"][-1]
     nbytes = N_NODES * Q * WORDS * 4
     t_w = host_ms(lambda: client.write(req), 3)
     t_r = host_ms(lambda: client.read(req), 3)
@@ -2162,6 +2252,7 @@ def phase_adapt(seed: int, kernels: dict) -> dict:
                   "migrate.installment -> client.migrate -> "
                   "engine.migrate_rows in the trace")
     gate = adopted.gate
+    hot_sig = adapted_signature(rec)
     moved = rec.metrics.get("migrate_moved_total")
     mig_ticks = [t for r, t in zip(reports[1:], drove["tick_ms"])
                  if r.phase in ("adopted", "migrating", "completed")]
@@ -2196,13 +2287,28 @@ def phase_adapt(seed: int, kernels: dict) -> dict:
                                             "syncs", "htod", "dtoh")},
            "migration_ms": sum(mig_ticks), "moved_chunks": moved,
            "drive_s": drive_s, "gate": dict(gate),
-           "new_mode": int(new_mode)}
+           "new_mode": int(new_mode), "hot_signature": hot_sig}
     out.update(adapt_path_timings(client, ctl, seed))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[adapt] peak device memory of the phase "
         f"{out['peak_gib']:.2f} GiB (data table "
         f"{client.state.data.numel() * 4 / 2 ** 30:.2f} GiB)")
     return out
+
+
+def adapted_signature(rec) -> list:
+    """The live ``/bb/hot`` signature the adoption was decided on: the
+    ``redecide`` audit record of that scope just before the adopting
+    ``gate_delta`` record."""
+    records = rec.audit.records()
+    at = [i for i, r in enumerate(records)
+          if r.kind == "gate_delta" and r.choice == "adopt"]
+    check(len(at) == 1, f"{len(at)} adopting gate_delta records")
+    sig = [r for r in records[:at[0]] if r.kind == "redecide"
+           and r.inputs.get("scope") == ADAPT_SCOPE]
+    check(bool(sig), f"no redecide record of {ADAPT_SCOPE} before the "
+                     f"adoption")
+    return [float(x) for x in sig[-1].inputs["signature"]]
 
 
 def adapt_path_timings(client, ctl, seed: int) -> dict:
@@ -2376,6 +2482,360 @@ def phase_adapt_calls(seed: int) -> dict:
     check({"client.write", "client.read.data", "client.meta",
            "engine.forward_write", "exchange.plan"} <= spans,
           f"the traced calls recorded spans {sorted(spans)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (h) the decision pipeline: decide, execute every decided layout, launch
+# ---------------------------------------------------------------------------
+def host_cpu() -> str:
+    """The host's CPU model and core count (host-only times name it), as
+    ``lscpu`` gives them."""
+    import os
+    import platform
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60).stdout
+    model = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
+             if ln.startswith("Model name:")]
+    return (f"{model[0] if model else platform.machine()}, "
+            f"{os.cpu_count()} cores")
+
+
+def decide_matrix() -> dict:
+    """``select_layout`` over ``build_workloads(32)`` under the four
+    settings, held against the pinned decisions and accuracies; the
+    adversarial corpus and the heterogeneous plan; host times."""
+    from repro_torch.core.intent.oracle import oracle_mode
+    from repro_torch.core.intent.selector import select_layout
+    from repro_torch.core.workloads import (adversarial_workloads,
+                                            build_workloads,
+                                            heterogeneous_workload)
+    ws = build_workloads(N_NODES)
+    oracle = {w.name: oracle_mode(w) for w in ws}
+    got, acc, per = {}, {}, []
+    t0 = time.perf_counter()
+    for setting, kw in DECIDE_SETTINGS.items():
+        hits = 0
+        for w in ws:
+            t1 = time.perf_counter()
+            d = select_layout(w, **kw)
+            if setting == "full":
+                per.append((time.perf_counter() - t1) * 1e3)
+                got[w.name] = (int(d.mode), d.confidence)
+            hits += int(d.mode == oracle[w.name])
+        acc[setting] = (hits, len(ws))
+    matrix_ms = (time.perf_counter() - t0) * 1e3
+    for name, want in DECISIONS.items():
+        check(got.get(name) == want, f"{name}: decided {got.get(name)}, "
+                                     f"the reference {want}")
+    check(acc == ACCURACY, f"accuracies {acc}, the reference's {ACCURACY}")
+    adv = [(w.name, int(select_layout(w, static_engine="auto").mode),
+            int(oracle_mode(w))) for w in adversarial_workloads(N_NODES)]
+    check(all(m == o for _, m, o in adv) and len(adv) == 6,
+          f"adversarial corpus (decided, oracle): {adv}")
+    het = select_layout(heterogeneous_workload(N_NODES))
+    plan = ({k: int(v) for k, v in het.scope_modes.items()}, int(het.mode))
+    check(plan == HETERO_PLAN, f"heterogeneous plan {plan}, the "
+                               f"reference's {HETERO_PLAN}")
+    modes = sorted({m for m, _ in got.values()})
+    log(f"[decide] {len(ws)} workloads x {len(DECIDE_SETTINGS)} settings: "
+        f"accuracies {acc} as the reference's; the 23 modes and "
+        f"confidences equal the pinned ones; adversarial 6 of 6 (auto); "
+        f"heterogeneous plan {plan[0]} default {plan[1]}; whole-job modes "
+        f"{modes}")
+    log(f"[decide] host ms, one select_layout (median of 23, full "
+        f"setting) {median(per):.3f}, the matrix ({len(ws)} x "
+        f"{len(DECIDE_SETTINGS)}) {matrix_ms:.3f}; CPU {host_cpu()}")
+    return {"modes": modes, "hetero": het, "accuracy": acc,
+            "select_ms": median(per), "matrix_ms": matrix_ms}
+
+
+class ClientCalls:
+    """Records every write and read of ``BBClient`` while active: the
+    read's outputs and every node table after each call, on the host."""
+
+    def __init__(self):
+        from repro_torch.core.client import BBClient
+        self.cls, self.calls, self._saved = BBClient, [], {}
+
+    def __enter__(self):
+        for name in ("write", "read"):
+            real = self._saved[name] = getattr(self.cls, name)
+
+            def recorded(client, req, *a, _real=real, _name=name, **kw):
+                out = _real(client, req, *a, **kw)
+                got = list(out) if _name == "read" else []
+                got += [getattr(client.state, f.name)
+                        for f in dataclasses.fields(client.state)]
+                self.calls.append((_name, [   # a copy: tables change in place
+                    x.to("cpu", copy=True) if torch.is_tensor(x) else x
+                    for x in got]))
+                return out
+            setattr(self.cls, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._saved.items():
+            setattr(self.cls, name, real)
+
+
+def same_call(a, b) -> bool:
+    return a[0] == b[0] and len(a[1]) == len(b[1]) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(a[1], b[1]))
+
+
+def probe_replay(counters) -> dict:
+    """``run_probe(through_engine=True)`` for every workload on the card:
+    the counters equal the shim's; the replay's routing rounds launch
+    ``route_plan`` (``counters``: route_plan, dest_budgets, pack_chunks);
+    every write and read (read outputs, node tables after the call) equals
+    the same replay on the CPU, bit for bit."""
+    from repro_torch.core.intent.probe import run_probe
+    from repro_torch.core.workloads import build_workloads
+    ws = build_workloads(N_NODES)
+    for c in counters:
+        c.launches = 0
+    with PlannerCalls() as planner, ClientCalls() as card:
+        t0 = time.perf_counter()
+        for w in ws:
+            got = run_probe(w, through_engine=True).to_darshan_dict()
+            want = run_probe(w).to_darshan_dict()
+            check(got == want, f"{w.name}: the replay changed the probe's "
+                               f"counters: {got} against {want}")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {c.name: c.launches for c in counters}
+    check(launches["route_plan"] > 0, "the probe replay launched no "
+                                      "route_plan")
+    check(launches["route_plan"] == planner.rounds and
+          launches["dest_budgets"] == planner.specs,
+          f"probe replay: {planner.rounds} rounds and {planner.specs} specs "
+          f"made {launches}")
+    with ClientCalls() as host:
+        for w in ws:
+            run_probe(w, through_engine=True, device="cpu")
+    names = [w.name for w in ws for _ in w.phases[:2]]   # a call a phase
+    check(len(card.calls) == len(host.calls) == len(names),
+          f"replay calls: {len(card.calls)} on the card, {len(host.calls)} "
+          f"on the CPU, {len(names)} phases replayed")
+    for name, c, h in zip(names, card.calls, host.calls):
+        check(same_call(c, h), f"replay of {name} ({c[0]}): the card's "
+                               f"outputs or node tables differ from the "
+                               f"CPU's")
+    log(f"[decide] probe replay (8 nodes, q 4, 8 words) of {len(ws)} "
+        f"workloads on the card in {wall:.3f} ms (each call's tables "
+        f"copied to the host included): counters as the shim's; "
+        f"{len(card.calls)} writes and reads equal the CPU replay's, "
+        f"outputs and node tables; launches {launches}")
+    return {"launches": launches, "ms": wall}
+
+
+def hetero_batch():
+    """Per node r: a 4 MiB N-N checkpoint transfer (4 chunks) under
+    ``/bb/ckpt/rank{r}/`` and 4 one-chunk files under ``/bb/shared/``,
+    one fused write (``heterogeneous_workload``'s phases)."""
+    paths, cids = [], []
+    for r in range(N_NODES):
+        paths.append([f"/bb/ckpt/rank{r}/ckpt.0"] * HETERO_CKPT +
+                     [f"/bb/shared/rank{r}/part{j}"
+                      for j in range(HETERO_SHARED)])
+        cids.append(list(range(HETERO_CKPT)) + [0] * HETERO_SHARED)
+    return paths, np.asarray(cids, np.int32)
+
+
+def drive_hetero(client, gen: torch.Generator) -> dict:
+    """The heterogeneous plan's traffic and checks: the fused write,
+    creates and stats of shared files, then each node reads its own
+    checkpoint chunks and its ring neighbour's shared files (node r reads
+    what node r+1 wrote), bit for bit; returns the timed requests."""
+    paths, cids = hetero_batch()
+    req = client.encode(paths, chunk_id=cids)
+    req.payload = random_payload(gen)
+    client.write(req)
+    torch.cuda.synchronize()
+    check(int(client.state.dropped.sum()) == 0, "hetero writes dropped")
+    new = client.encode([[f"/bb/shared/rank{r}/new{j}" for j in range(Q)]
+                         for r in range(N_NODES)])
+    check(bool(client.create(new).all()), "shared creates not acknowledged")
+    found, size, _ = client.stat(new)
+    check(bool(found.all()) and not bool(size.any()),
+          "created shared files not found with size 0")
+    rpaths = [paths[r][:HETERO_CKPT] + paths[(r + 1) % N_NODES][HETERO_CKPT:]
+              for r in range(N_NODES)]
+    rreq = client.encode(rpaths, chunk_id=cids)
+    out, found = client.read(rreq)
+    want = torch.cat([req.payload[:, :HETERO_CKPT],
+                      torch.roll(req.payload[:, HETERO_CKPT:], -1, dims=0)],
+                     dim=1)
+    check(bool(found.all()), "hetero read: chunks not found")
+    check(torch.equal(out, want), "hetero read differs from the written "
+                                  "payload")
+    found, size, loc = client.stat(rreq)
+    sizes = np.array([HETERO_CKPT] * HETERO_CKPT + [1] * HETERO_SHARED)
+    check(bool(found.all()) and np.array_equal(
+        size.cpu().numpy(), np.broadcast_to(sizes, (N_NODES, Q))),
+          "hetero stat: files missing or sizes wrong")
+    writers = np.roll(np.arange(N_NODES), -1)[:, None]
+    check(np.array_equal(loc[:, HETERO_CKPT:].cpu().numpy(),
+                         np.broadcast_to(writers, (N_NODES, HETERO_SHARED))),
+          "hetero stat: a HYBRID shared file's data is not at its writer")
+    return {"write": req, "read": rreq, "stat": rreq}
+
+
+def drive_uniform(client, mode: int, gen: torch.Generator) -> dict:
+    """``write_read_stat`` of one batch under a uniform policy; under
+    NODE_LOCAL a node's metadata of the N-to-1 file holds only its own
+    chunks (size 2r + 2).  Returns the timed requests."""
+    sizes = expected_sizes()
+    if mode == 1:
+        sizes[:, 4:6] = 2 * np.arange(1, N_NODES + 1)[:, None]
+    (_, _, req, rreq), = write_read_stat(client, gen, 1, sizes, 0,
+                                         f"mode {mode}")
+    return {"write": req, "read": rreq, "stat": req}
+
+
+def run_layout(name: str, policy, drive, counters, gen) -> dict:
+    """``counted_drive``, then each call's latency (host clock, best of 3)
+    and profile (launches, host syncs, host-to-device copies)."""
+    client, reqs, launches, planner = counted_drive(name, policy, drive,
+                                                    counters, gen)
+    calls = {"write": lambda: client.write(reqs["write"]),
+             "read": lambda: client.read(reqs["read"]),
+             "stat": lambda: client.stat(reqs["stat"])}
+    out = {"kind": client._select_kind(Q), "launches": launches,
+           "rounds": planner.rounds, "specs": planner.specs}
+    for call, fn in calls.items():
+        st = call_profile(fn)
+        out[call] = {"ms": host_ms(fn, 3), "launches": st["launches"],
+                     "syncs": st["syncs"], "htod": st["htod"],
+                     "busy_ms": st["busy_ms"]}
+    log(f"[decide] {name}: exchange {out['kind']}; reads bit for bit; "
+        f"{launches} ({planner.rounds} rounds, {planner.specs} specs); " +
+        "; ".join(f"{c} {out[c]['ms']:.3f} ms, {out[c]['launches']}/"
+                  f"{out[c]['syncs']}/{out[c]['htod']} launches/syncs/"
+                  f"copies, busy {out[c]['busy_ms']:.3f}" for c in calls))
+    return out
+
+
+def execute_layouts(decided: dict, counters, seed: int) -> dict:
+    """The decided heterogeneous plan, then a uniform policy of each
+    whole-job mode the decisions gave, one client at a time."""
+    from repro_torch.core.policy import LayoutPolicy
+    import gc
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    policy = decided["hetero"].layout_policy(N_NODES)
+    check(({s: int(m) for s, m in policy.scopes}, int(policy.default_mode))
+          == HETERO_PLAN, f"the decided policy {policy} is not the plan")
+    runs = [("hetero", "heterogeneous plan " + str(HETERO_PLAN), policy,
+             drive_hetero)]
+    runs += [(f"M{m}", f"uniform mode {m}", LayoutPolicy.uniform(m, N_NODES),
+              lambda c, g, m=m: drive_uniform(c, m, g))
+             for m in decided["modes"]]
+    out = {}
+    for key, name, pol, drive in runs:
+        # free any client left unreferenced (this phase's or an earlier
+        # phase's) before the next 8 GiB table is made
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        out[key] = run_layout(name, pol, drive, counters, gen)
+        out[key]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[decide] {name}: peak device memory "
+            f"{out[key]['peak_gib']:.2f} GiB ({held:.2f} GiB held before "
+            f"its client was made)")
+    return out
+
+
+def redecide_hot(signature: list) -> int:
+    """Phase e2's adopted ``/bb/hot`` signature through
+    ``signature_workload`` and the full selector."""
+    from repro_torch.core.adapt.redecide import signature_workload
+    from repro_torch.core.intent.selector import select_layout
+    from repro_torch.core.layouts import LayoutMode
+    w = signature_workload(ADAPT_SCOPE, np.asarray(signature), N_NODES)
+    d = select_layout(w)
+    check(isinstance(d.mode, LayoutMode), f"re-decision gave {d.mode!r}")
+    log(f"[decide] {ADAPT_SCOPE} signature at adoption "
+        f"{[round(x, 4) for x in signature]} -> selector Mode "
+        f"{int(d.mode)} ({d.mode.name}, confidence {d.confidence:.2f}; "
+        f"{d.decision.steps[-1]})")
+    return int(d.mode)
+
+
+def launch_training(counters) -> dict:
+    """``repro_torch.launch.train.main`` in-process at full width: it
+    decides Mode 1, trains, and checkpoints every LAUNCH_CKPT_EVERY steps;
+    ``counters`` (segmented checksum and routing) launch once a save.  The
+    decision's host time is its call timed once beside the run."""
+    import contextlib
+    import gc
+    import io
+    from repro_torch.core.intent.selector import select_layout
+    from repro_torch.core.workloads import workload_by_name
+    from repro_torch.launch import train as launcher
+    save_gib = 12 * 999_812_736 / 2 ** 30
+    avail = mem_available_gib()
+    saves = min(LAUNCH_SAVES, int((avail - LAUNCH_RESERVE_GIB) // save_gib))
+    check(saves >= 1, f"host MemAvailable {avail:.1f} GiB holds no save")
+    steps = saves * LAUNCH_CKPT_EVERY
+    argv = LAUNCH_ARGS + ["--steps", str(steps), "--ckpt-every",
+                          str(LAUNCH_CKPT_EVERY)]
+    t1 = time.perf_counter()
+    select_layout(workload_by_name("IOR-A"))
+    decide_ms = (time.perf_counter() - t1) * 1e3
+    for c in counters:
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = launcher.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(line)
+    launches = {c.name: c.launches for c in counters}
+    check(lines and lines[0].startswith(
+        "[train] Proteus layout decision: Mode 1 "),
+          f"the launcher decided {lines[:1]}, not Mode 1 (NODE_LOCAL)")
+    check(res.final_step == steps and len(res.losses) == steps and
+          all(np.isfinite(res.losses)),
+          f"final step {res.final_step}, losses {res.losses}")
+    check(all(n == saves for n in launches.values()),
+          f"{saves} saves made {launches}, not one of each a save")
+    check(not any(dataclasses.asdict(res.failure_log).values()),
+          f"FailureLog {res.failure_log}")
+    log(f"[launch] {' '.join(argv)}: {steps} steps, {saves} saves (host "
+        f"MemAvailable {avail:.1f} GiB before), launches {launches}; wall "
+        f"{wall:.3f} s; one select_layout of IOR-A {decide_ms:.3f} ms "
+        f"host, so training ~{wall - decide_ms / 1e3:.3f} s")
+    del res
+    gc.collect()
+    log(f"[launch] host MemAvailable {mem_available_gib():.1f} GiB after "
+        f"the run's store is freed")
+    return {"argv": argv, "steps": steps, "saves": saves,
+            "launches": launches, "wall_s": wall, "decision_ms": decide_ms,
+            "train_s": wall - decide_ms / 1e3}
+
+
+def phase_decide(seed: int, plane, ckpt, hot_signature: list) -> dict:
+    """(h): ``plane`` are the data plane's counters (route_plan,
+    dest_budgets, pack_chunks), ``ckpt`` the checkpoint path's
+    (fletcher_segmented, route_chunks_segmented)."""
+    t0 = time.perf_counter()
+    decided = decide_matrix()
+    out = {k: decided[k] for k in ("modes", "accuracy", "select_ms",
+                                   "matrix_ms")}
+    out["replay"] = probe_replay(plane)
+    out["layouts"] = execute_layouts(decided, plane, seed)
+    out["hot_redecided"] = redecide_hot(hot_signature)
+    torch.cuda.empty_cache()
+    out["launch"] = launch_training(ckpt)
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[decide] phase h wall {out['wall_s']:.3f} s")
     return out
 
 
@@ -2730,8 +3190,7 @@ def main() -> int:
         err.update(last["err"])
         torch.cuda.empty_cache()
         phase = "deployment"
-        deploy = phase_deployment(args.seed, counters, ROUTE_PLAN,
-                                  DEST_BUDGETS)
+        deploy = phase_deployment(args.seed, counters)
         phase = "seed digests"
         phase_seed_digests()
         phase = "timings"
@@ -2751,6 +3210,11 @@ def main() -> int:
         phase = "adapt calls"
         adapt["calls"] = phase_adapt_calls(args.seed)
         log(json.dumps({"adapt": adapt}))
+        torch.cuda.empty_cache()
+        phase = "decide"
+        decide = phase_decide(args.seed, counters, ckpt_counters,
+                              adapt["hot_signature"])
+        log(json.dumps({"decide": decide}))
         torch.cuda.empty_cache()
         phase = "train"
         train = phase_train(args.seed, ckpt_counters,

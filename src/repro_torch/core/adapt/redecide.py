@@ -14,10 +14,13 @@ gate reach the ``LiveMigrator``.
 
 The migration gate reads the measured fabric model of the committed
 benchmark artifacts through ``exchange_select.fabric_model``, as the
-reference does, so the port makes the reference's decisions.  The
-reference's ``signature_workload`` wraps the synthesized phases in a
-``Workload`` for the full intent selector; the port's raises until the
-intent pipeline (``core/workloads.py``) is ported.
+reference does, so the port makes the reference's decisions.
+
+For audit parity with the offline pipeline, ``signature_workload`` wraps
+the synthesized phases in a ``Workload`` so the full intent selector
+(``repro_torch.core.intent``: static extraction + knowledge reasoner) can
+be run over the same evidence; the controller uses the simulator path by
+default because it is deterministic and costs microseconds per tick.
 """
 from __future__ import annotations
 
@@ -230,11 +233,20 @@ def gate_delta(delta: PolicyDelta, n_chunks: int, words: int,
 def signature_workload(scope: str, sig: np.ndarray, n_nodes: int):
     """The drifted signature as a ``Workload`` for the full selector path.
 
-    Not ported yet: it needs ``core/workloads.py`` and the intent
-    selector, which come with the intent pipeline (ROADMAP Queue 1
-    item 6).
+    Lets ``intent.selector.select_layout`` reason over the live evidence
+    with the same prompt/knowledge machinery as the offline decision —
+    the source/script fields carry a synthesized description of the
+    measured behavior (the static extractor treats them as free text).
     """
-    raise NotImplementedError(
-        "signature_workload needs core/workloads.py and the intent "
-        "selector, not ported yet (ROADMAP Queue 1 item 6: the intent "
-        f"pipeline); scope {scope!r}, {n_nodes} nodes")
+    from repro_torch.core.workloads import Workload
+    read_share, meta_share, locality, seq, _, _ = np.asarray(sig)
+    src = (f"/* runtime-synthesized: read_share={read_share:.2f} "
+           f"meta_share={meta_share:.2f} locality={locality:.2f} "
+           f"seq={seq:.2f} */\n"
+           + ("for (i...) pread(fd, buf, xfer, off);\n" if read_share > 0.5
+              else "for (i...) pwrite(fd, buf, xfer, off);\n"))
+    script = f"#!/bin/bash\n# scope {scope} live re-decision probe\n"
+    return Workload(app="live", test_id=f"drift-{scope.strip('/')}",
+                    description=f"runtime drift re-decision for {scope}",
+                    phases=phases_from_signature(scope, sig),
+                    source_code=src, job_script=script, n_nodes=n_nodes)

@@ -384,8 +384,35 @@ def test_migration_cost_matches_the_reference():
 
 
 def test_signature_workload_waits_for_the_intent_pipeline():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        redecide.signature_workload(SCOPE, DRIFTED, n_nodes=N)
+    """Named when the port's ``signature_workload`` raised until the intent
+    pipeline was ported; now it is, and a drifted signature (and a few
+    more: write-heavy, metadata-heavy, cross-rank, sequential and random)
+    becomes the reference's ``Workload``, field for field, on which the
+    full selector makes the reference's decision."""
+    from repro.core.intent.selector import select_layout as j_select
+    from repro_torch.core.intent.selector import select_layout
+    sigs = [DRIFTED, BASE, OTHER,
+            np.array([0.5, 0.3, 0.4, 0.6, 0.0, 0.9]),
+            np.array([0.02, 0.01, 1.0, 1.0, 0.0, 0.1]),
+            np.array([0.7, 0.0, 0.3, 0.0, 0.0, 0.8])]
+    for sig in sigs:
+        for n in (N, 32):
+            w = redecide.signature_workload(SCOPE, sig, n_nodes=n)
+            jw = jredecide.signature_workload(SCOPE, sig, n_nodes=n)
+            assert (w.app, w.test_id, w.description, w.source_code,
+                    w.job_script, w.n_nodes, w.name) == \
+                (jw.app, jw.test_id, jw.description, jw.source_code,
+                 jw.job_script, jw.n_nodes, jw.name)
+            assert [dataclasses.asdict(p) for p in w.phases] == \
+                [dataclasses.asdict(p) for p in jw.phases]
+            d, jd = select_layout(w), j_select(jw)
+            assert isinstance(d.mode, LayoutMode)
+            assert (int(d.mode), d.confidence, d.decision.steps, d.prompt,
+                    d.context_json) == \
+                (int(jd.mode), jd.confidence, jd.decision.steps, jd.prompt,
+                 jd.context_json)
+            assert {k: int(v) for k, v in d.scope_modes.items()} == \
+                {k: int(v) for k, v in jd.scope_modes.items()}
 
 
 # ---------------------------------------------------------------------------

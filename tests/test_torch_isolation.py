@@ -45,12 +45,17 @@ def test_importing_the_port_loads_no_jax_module():
         for m in {mods!r}:
             __import__(m)
         import repro_torch.core.adapt, repro_torch.core.obs
+        import repro_torch.core.intent, repro_torch.core.intent.staticlib
+        import repro_torch.launch.train
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib")
                      or m == "repro" or m.startswith("repro."))
         assert not bad, bad
         assert "repro_torch.core.adapt.controller" in sys.modules
         assert "repro_torch.core.obs.recorder" in sys.modules
+        assert "repro_torch.core.intent.selector" in sys.modules
+        assert "repro_torch.core.intent.staticlib.analyzer" in sys.modules
+        assert "repro_torch.core.workloads" in sys.modules
         from repro_torch import kernels
         assert not kernels._LIBS, "a kernel was built at import time"
         print("ok", len({mods!r}))
