@@ -136,6 +136,30 @@ Phases, each of which must succeed or the run fails without a result line:
       ``fletcher_segmented`` and one ``route_chunks_segmented`` launch a
       save (zeroed just before); its wall time beside one
       ``select_layout`` of the launcher's workload;
+  (i) the examples and the mesh backend (earlier clients freed first):
+      both examples' ``main()`` with their tables on the card (the demo's
+      ``21/23 = 91.30%``, its per-scope plan faster than every uniform
+      mode, both mixed batches read back bit for bit); the mesh plans at
+      the deployment's width through the stacked engine — the measured
+      padded ``MeshRaggedSpec``s, the same forced to ``ppermute``
+      pipelined and not — a write, the two-phase read and a stat of phase
+      c's batch each, tables, replies and stat triples equal to the
+      compacted stacked client's bit for bit, ``dest_histogram2d``
+      (counts only: the mesh specs) and ``pack_chunks`` launched (zeroed
+      just before), each call's latency and profile, the padded buffer's
+      bytes beside the stacked ragged Σbᵢ, peak memory; then
+      ``BBClient(policy, make_node_mesh())``, NCCL at world size 1
+      (a gloo group fails the phase), through ``counted_drive`` with
+      phase c's calls and checks, its tables equal to a stacked client's
+      after the same calls, its latency beside the stacked client's, the
+      NCCL kernels' device time and the ``all_to_all`` bytes of a call;
+      the dry-run's BB cell (``run_bb_cell``) on that mesh, its record in
+      a temporary directory; and at world size 1 the shift is the
+      identity, ``mesh_global_sum`` the sum, ``build_telemetry_reduce``
+      of a telemetry client's counters its ``snapshot()``.  Phase b holds
+      the mesh plans' kernel calls on the first write (the ppermute
+      rounds' ``route_plan``, a shift round's pack, the receive
+      permutation's gather) against their plain versions;
   (f) training: ``run_training`` with gemma3-1b at full width (26 layers,
       d 1152, vocab 262144, 999,812,736 params, bf16 compute, f32 params),
       batch 4 × 1024 tokens, checkpoints every 2 steps through the
@@ -172,6 +196,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -484,7 +509,9 @@ def phase_kernels_vs_plain(seed: int) -> dict:
     pack_case("main path (write send pack)", inp["fields"], inp["idx"])
     packed = pack_chunks(inp["fields"], inp["idx"])
     pack_case("main path (ragged receive view)", packed, inp["recv_rows"])
-    del packed, inp
+    del packed
+    mesh_plan_vs_plain(inp, err, pack_case)
+    del inp
     torch.cuda.empty_cache()
     dev = torch.device(DEVICE)
     for shape, n_bins in (((1, 8), 5), ((16, 128), 32), ((4, 300), 4097),
@@ -507,6 +534,58 @@ def phase_kernels_vs_plain(seed: int) -> dict:
     log(f"[kernels] spec of the first write's data plane: total "
         f"{spec.total} columns, bmax {spec.bmax}")
     return err
+
+
+def mesh_plan_vs_plain(inp: dict, err: dict, pack_case) -> None:
+    """The mesh plans' kernel calls on the first write's data plane, each
+    against its plain version: the ppermute plan's ``route_plan`` (the
+    round-relative destinations on the round widths' table), the
+    pipelined send pack of one shift round, and the receive permutation's
+    gather back to source order over the whole (32, Σw) receive buffer.
+    The mesh spec's counts-only ``dest_histogram2d`` is the main path's
+    case above, the padded plan's rounds the uniform ``route_plan``."""
+    from repro_torch.core import exchange_plan as xp
+    from repro_torch.kernels.chunk_router.chunk_router import route_plan
+    from repro_torch.kernels.chunk_router.ref import route_plan_ref
+    s = xp.plan_mesh_ragged_spec(inp["dest"], inp["valid"], N_NODES,
+                                 allow_ppermute=False)
+    spec = xp.MeshRaggedSpec(s.budgets, s.round_widths, "ppermute")
+    ranks = torch.arange(N_NODES, dtype=torch.int32, device=DEVICE)[:, None]
+    rounds = torch.remainder(inp["dest"] - ranks, N_NODES).to(torch.int32)
+    table = xp.spec_tables(xp._round_spec(spec), rounds.device).table
+    got = route_plan(rounds, inp["valid"], table, total=spec.total)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("send_idx", "reply_idx", "overflow", "counts"),
+                          got, route_plan_ref(rounds, inp["valid"], table,
+                                              total=spec.total)):
+        err["route_plan"] = max(err["route_plan"], max_abs_err(a, w))
+        check(torch.equal(a, w), f"route_plan {name} differs on the "
+                                 f"ppermute plan's rounds")
+    log(f"[kernels] route_plan ppermute rounds (32, 8), widths "
+        f"{spec.round_widths}: equal")
+    plan = xp.PermuteExecutor(N_NODES, spec).plan(inp["dest"], inp["valid"],
+                                                  client=ranks)
+    base = torch.arange(N_NODES, dtype=torch.int32, device=DEVICE)[:, None]
+    k, off, w = max(xp.PermuteExecutor(N_NODES, spec)._segments()[1:],
+                    key=lambda seg: seg[2])
+    part = plan.send_idx[:, off:off + w]
+    pack_case(f"mesh path (ppermute round {k} send pack, width {w})",
+              inp["fields"], torch.where(part >= 0, part + base * Q, -1)
+              .to(torch.int32).reshape(-1))
+    recv = pack_chunks_flat(inp["fields"], plan.send_idx, base * Q)
+    pack_case("mesh path (ppermute receive permutation)", recv,
+              (plan.recv_perm + base * spec.total).to(torch.int32)
+              .reshape(-1))
+    del recv
+
+
+def pack_chunks_flat(fields: torch.Tensor, send_idx: torch.Tensor,
+                     base: torch.Tensor) -> torch.Tensor:
+    """The (L·S, F) send buffer of a plan's (L, S) slots over the (L·q, F)
+    request rows (rebased by ``base``), through ``pack_chunks``."""
+    from repro_torch.kernels.chunk_pack.chunk_pack import pack_chunks
+    return pack_chunks(fields, torch.where(send_idx >= 0, send_idx + base,
+                                           -1).to(torch.int32).reshape(-1))
 
 
 def planner_vs_plain(inp: dict, rng: np.random.RandomState,
@@ -1367,8 +1446,9 @@ def phase_last_kernels(seed: int, counters, f32_counter,
 # ---------------------------------------------------------------------------
 class PlannerCalls:
     """Counts the planner's routing rounds (``_compact_plan_ragged`` with
-    q > 0, which the uniform ``_compact_plan`` also calls) and measured
-    specs (``plan_ragged_spec``, as the engine calls it) while active, by
+    q > 0, which the uniform ``_compact_plan`` and the ppermute plan also
+    call) and measured specs (``plan_ragged_spec`` and
+    ``plan_mesh_ragged_spec``, as the client calls them) while active, by
     wrapping the module functions; restores them on exit."""
 
     def __init__(self):
@@ -1376,7 +1456,8 @@ class PlannerCalls:
         from repro_torch.core import exchange_plan as xp
         self.rounds = self.specs = 0
         self._targets = [(xp, "_compact_plan_ragged", "rounds"),
-                         (bb, "plan_ragged_spec", "specs")]
+                         (bb, "plan_ragged_spec", "specs"),
+                         (bb, "plan_mesh_ragged_spec", "specs")]
         self._saved = []
 
     def __enter__(self):
@@ -1457,16 +1538,22 @@ def drive_deployment(client, gen: torch.Generator) -> list:
     return batches
 
 
-def counted_drive(name: str, policy, drive, counters, gen):
-    """A fresh client under ``policy`` at the deployment's width, driven by
-    ``drive(client, gen)`` with the data plane's launch counts
-    (``counters``: route_plan, dest_budgets, pack_chunks) zeroed just
-    before: each must be above 0, with one ``route_plan`` a routing round
-    and one ``dest_budgets`` a measured spec.  Returns the client, the
-    drive's result, the launches and the ``PlannerCalls``."""
+def counted_drive(name: str, policy, drive, counters, gen,
+                  backend="stacked"):
+    """A fresh client under ``policy`` at the deployment's width on
+    ``backend`` ("stacked" or a ``NodeMesh``), driven by ``drive(client,
+    gen)`` with the data plane's launch counts zeroed just before: each
+    must be above 0, with one ``route_plan`` a routing round and one spec
+    launch a measured spec.  ``counters``: route_plan, the spec kernel,
+    pack_chunks — ``dest_budgets`` measures a stacked spec, the
+    counts-only ``dest_histogram2d`` a mesh spec (every row's counts).
+    Returns the client, the drive's result, the launches and the
+    ``PlannerCalls``."""
     from repro_torch.core.client import BBClient
-    client = BBClient(policy, cap=CAP, words=WORDS, mcap=MCAP)
+    client = BBClient(policy, backend, cap=CAP, words=WORDS, mcap=MCAP)
     check(client.device.type == DEVICE, f"{name}: tables not on the card")
+    spec_kernel = "dest_budgets" if backend == "stacked" \
+        else "dest_histogram2d"
     for c in counters:
         c.launches = 0
     with PlannerCalls() as planner:
@@ -1478,9 +1565,9 @@ def counted_drive(name: str, policy, drive, counters, gen):
     check(launches["route_plan"] == planner.rounds,
           f"{name}: {planner.rounds} routing rounds made "
           f"{launches['route_plan']} route_plan launches, not one each")
-    check(launches["dest_budgets"] == planner.specs,
+    check(launches[spec_kernel] == planner.specs,
           f"{name}: {planner.specs} measured specs made "
-          f"{launches['dest_budgets']} dest_budgets launches, not one each")
+          f"{launches[spec_kernel]} {spec_kernel} launches, not one each")
     return client, res, launches, planner
 
 
@@ -1914,7 +2001,10 @@ def call_profile(fn, tries: int = 3) -> dict:
     host's syncs (``cudaStreamSynchronize`` and blocking ``cudaMemcpy``
     calls: each blocking copy, ``.item()`` and ``.cpu()`` makes one; the
     closing device synchronize is not counted).  A session that recorded no device work is taken again,
-    up to ``tries`` sessions in all (``fn`` runs once a session)."""
+    up to ``tries`` sessions in all (``fn`` runs once a session).  The
+    ``nccl:*`` device records are the ranges of NCCL collectives around
+    their own copies and kernels (``nccl_ms``), not operations: busy time
+    and the operation count leave them out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
@@ -1933,9 +2023,12 @@ def call_profile(fn, tries: int = 3) -> dict:
     def count(pred, among=events):
         return sum(e.count for e in among if pred(e.key))
 
+    nccl = [e for e in dev if e.key.startswith("nccl:")]
+    dev = [e for e in dev if not e.key.startswith("nccl:")]
     return dict(
         wall_ms=wall, dev=dev,
         busy_ms=sum(e.self_device_time_total for e in dev) / 1e3,
+        nccl_ms=sum(e.self_device_time_total for e in nccl) / 1e3,
         ops={e.key: e.count for e in dev},
         device_ops=sum(e.count for e in dev),
         launches=count(lambda k: "LaunchKernel" in k),
@@ -2722,7 +2815,6 @@ def execute_layouts(decided: dict, counters, seed: int) -> dict:
     """The decided heterogeneous plan, then a uniform policy of each
     whole-job mode the decisions gave, one client at a time."""
     from repro_torch.core.policy import LayoutPolicy
-    import gc
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
     policy = decided["hetero"].layout_policy(N_NODES)
     check(({s: int(m) for s, m in policy.scopes}, int(policy.default_mode))
@@ -2770,7 +2862,6 @@ def launch_training(counters) -> dict:
     ``counters`` (segmented checksum and routing) launch once a save.  The
     decision's host time is its call timed once beside the run."""
     import contextlib
-    import gc
     import io
     from repro_torch.core.intent.selector import select_layout
     from repro_torch.core.workloads import workload_by_name
@@ -2836,6 +2927,363 @@ def phase_decide(seed: int, plane, ckpt, hot_signature: list) -> dict:
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
     log(f"[decide] phase h wall {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (i) the examples and the mesh backend
+# ---------------------------------------------------------------------------
+#: the mesh plans driven through the stacked engine: (executor, pipeline)
+MESH_PLANS = (("padded", True), ("ppermute", True), ("ppermute", False))
+
+
+def run_examples() -> dict:
+    """Both examples' ``main()`` in this process, their tables where the
+    examples put them by default (the card): the demo's accuracy line and
+    per-scope plan faster than every uniform mode in the simulator, and
+    both mixed batches read back bit for bit (each ``main`` raises
+    otherwise)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import proteus_layout_demo, quickstart
+    argv = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    out = {}
+    for name, mod in (("quickstart", quickstart),
+                      ("demo", proteus_layout_demo)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv)
+        out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "lines": buf.getvalue().splitlines()}
+        client = res if name == "quickstart" else res["client"]
+        check(client.state.data.device.type == DEVICE,
+              f"{name}: tables not on the card")
+    qs, demo = out["quickstart"]["lines"], out["demo"]["lines"]
+    check(any("64 chunks written + read back intact" in x for x in qs),
+          "quickstart: no read-back line")
+    check("accuracy: 21/23 = 91.30%  (paper: 91.30%)" in demo,
+          "demo: accuracy is not 21/23")
+    times = res["times"]
+    check(all(times["per-scope policy"] < v for k, v in times.items()
+              if k.startswith("uniform")),
+          f"demo: the per-scope plan does not beat every uniform mode "
+          f"{times}")
+    check(any(x.startswith("BB engine: mixed-mode batch") for x in demo),
+          "demo: no mixed-batch read-back line")
+    for name, lines in (("quickstart", qs[-4:]), ("demo", demo[-10:])):
+        for line in lines:
+            if line.strip():
+                log(f"[mesh] example {name}: {line}")
+    log(f"[mesh] examples on the card: quickstart "
+        f"{out['quickstart']['ms']:.1f} ms, demo {out['demo']['ms']:.1f} "
+        f"ms (host, decisions included)")
+    return {k: v["ms"] for k, v in out.items()}
+
+
+def mesh_plan_calls(policy, state, req, rreq, executor: str,
+                    pipeline: bool) -> dict:
+    """A write of ``req``, the two-phase read of ``rreq`` and a stat of
+    ``req`` through the stacked engine with every plane's spec measured on
+    its call's destinations (``plan_mesh_ragged_spec``, as a mesh client
+    plans) and forced to ``executor``: the mesh plans' executors on the
+    single-device hooks (``stacked_exchange``, ``stacked_shift``)."""
+    from repro_torch.core import burst_buffer as bb
+    from repro_torch.core.layouts import LayoutMode, route_data, route_meta
+    ranks = torch.arange(N_NODES, dtype=torch.int32, device=DEVICE)[:, None]
+    valid = torch.ones((N_NODES, Q), dtype=torch.bool, device=DEVICE)
+
+    def full(v):
+        return torch.full((N_NODES, Q), v, dtype=torch.int32, device=DEVICE)
+
+    def spec(dest, ok):
+        s = bb.plan_mesh_ragged_spec(dest, ok, N_NODES, allow_ppermute=False)
+        return bb.MeshRaggedSpec(s.budgets, s.round_widths, executor)
+
+    def config(data=None, meta=None):
+        return bb.ExchangeConfig(
+            "compacted", pipeline=pipeline,
+            data_spec=None if data is None else spec(*data),
+            meta_spec=None if meta is None else spec(*meta))
+
+    def owners(r, mode):
+        return route_meta(mode, N_NODES, policy.n_md_servers, r.path_hash,
+                          ranks)
+
+    def write():
+        mode = policy.resolve(req.scope_hash)
+        dest = route_data(mode, N_NODES, req.path_hash, req.chunk_id, ranks)
+        return bb.forward_write(
+            state, policy, req.path_hash, req.chunk_id, req.payload, valid,
+            mode=mode, config=config((dest, valid),
+                                     (owners(req, mode), valid)))
+
+    def read():
+        mode = policy.resolve(rreq.scope_hash)
+        probe = valid & (mode == LayoutMode.HYBRID)
+        _, fm, _, loc = bb.meta_op(
+            state, policy, full(bb.OP_STAT), rreq.path_hash, full(0),
+            full(-1), probe, mode=mode,
+            config=config(meta=(owners(rreq, mode), probe)))
+        data_loc = torch.where(fm & (loc >= 0), loc,
+                               ranks.expand(N_NODES, Q))
+        dest = route_data(mode, N_NODES, rreq.path_hash, rreq.chunk_id,
+                          ranks, data_loc=data_loc)
+        return bb.forward_read(state, policy, rreq.path_hash, rreq.chunk_id,
+                               valid, mode=mode,
+                               config=config((dest, valid)),
+                               data_loc=data_loc)
+
+    def stat():
+        mode = policy.resolve(req.scope_hash)
+        _, f, size, loc = bb.meta_op(
+            state, policy, full(bb.OP_STAT), req.path_hash, full(0),
+            full(-1), valid, mode=mode,
+            config=config(meta=(owners(req, mode), valid)))
+        return f, size, loc
+
+    return {"write": write, "read": read, "stat": stat}
+
+
+def call_stats(label: str, calls: dict) -> dict:
+    """Each call's latency (host clock, best of 3) and one profile of it
+    (``profile_call``: launches, host syncs, host-to-device copies, device
+    busy ms and idle share, the NCCL kernels' device ms, the top
+    kernels logged)."""
+    out = {}
+    for name, fn in calls.items():
+        st = profile_call(f"{label} {name}", fn)
+        out[name] = {"ms": host_ms(fn, 3),
+                     **{k: st[k] for k in ("launches", "syncs", "htod",
+                                           "busy_ms", "idle", "nccl_ms")}}
+    return out
+
+
+def same_tables(a, b, label: str) -> None:
+    for f in dataclasses.fields(a):
+        check(torch.equal(getattr(a, f.name), getattr(b, f.name)),
+              f"{label}: table {f.name} differs from the stacked client's")
+
+
+def mesh_plans(seed: int, policy, counters: dict) -> dict:
+    """(i) 2: the padded and ppermute plans, pipelined and not, at the
+    deployment's width through the stacked engine, against the compacted
+    stacked client on one batch: tables after the write, the read's
+    replies and the stat triples, bit for bit; ``dest_histogram2d`` (the
+    mesh specs) and ``pack_chunks`` launched; each call's latency and
+    profile; the write's data-plane buffer against the stacked plan's
+    packed Σbᵢ; peak memory."""
+    from repro_torch.core import burst_buffer as bb
+    from repro_torch.core.client import BBClient
+    from repro_torch.core.layouts import route_data
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+    ref = BBClient(policy, cap=CAP, words=WORDS, mcap=MCAP)
+    paths, cids = batch_paths(0)
+    req = ref.encode(paths, chunk_id=cids)
+    req.payload = random_payload(gen)
+    rreq = ref.encode([paths[(r + 1) % N_NODES] for r in range(N_NODES)],
+                      chunk_id=np.roll(cids, -1, axis=0))
+    ref.write(req)
+    want_read, want_stat = ref.read(rreq), ref.stat(req)
+    check(bool(want_read[1].all()), "mesh plans: the stacked read missed")
+    ranks = torch.arange(N_NODES, dtype=torch.int32, device=DEVICE)[:, None]
+    mode = policy.resolve(req.scope_hash)
+    dest = route_data(mode, N_NODES, req.path_hash, req.chunk_id, ranks)
+    valid = torch.ones((N_NODES, Q), dtype=torch.bool, device=DEVICE)
+    row = 4 * (WORDS + 3)                      # a write's data row, bytes
+    ragged = bb.plan_ragged_spec(dest, valid, N_NODES)
+    mspec = bb.plan_mesh_ragged_spec(dest, valid, N_NODES,
+                                     allow_ppermute=False)
+    out = {"data_plane": {
+        "budgets": list(mspec.budgets), "round_widths":
+        list(mspec.round_widths), "bmax": mspec.bmax,
+        "padded_bytes": N_NODES * N_NODES * mspec.bmax * row,
+        "ppermute_bytes": N_NODES * mspec.total * row,
+        "ppermute_exchanged_bytes": N_NODES * mspec.exchanged_cols * row,
+        "ragged_bytes": N_NODES * ragged.total * row}}
+    log(f"[mesh] write data plane at {N_NODES} nodes: bmax {mspec.bmax}, "
+        f"padded buffer {out['data_plane']['padded_bytes'] / 2 ** 30:.3f} "
+        f"GiB; ppermute Σw {mspec.total} ({mspec.exchanged_cols} off the "
+        f"node), round widths {mspec.round_widths}; stacked ragged Σb "
+        f"{ragged.total} "
+        f"({out['data_plane']['ragged_bytes'] / 2 ** 30:.3f} GiB)")
+    for executor, pipeline in MESH_PLANS:
+        key = f"{executor}{'' if pipeline else '-sync'}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = bb.init_state(N_NODES, CAP, WORDS, MCAP, device=DEVICE)
+        calls = mesh_plan_calls(policy, state, req, rreq, executor,
+                                pipeline)
+        for c in counters.values():
+            c.launches = 0
+        calls["write"]()
+        same_tables(state, ref.state, key)
+        got = calls["read"]()
+        check(all(torch.equal(a, b) for a, b in zip(got, want_read)),
+              f"{key}: the read differs from the stacked client's")
+        got = calls["stat"]()
+        check(all(torch.equal(a, b) for a, b in zip(got, want_stat)),
+              f"{key}: the stat differs from the stacked client's")
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        for k in ("dest_histogram2d", "pack_chunks"):
+            check(launches[k] > 0, f"{key}: {k} never launched")
+        del got
+        res = {"launches": launches, **call_stats(f"mesh {key}", calls)}
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[key] = res
+        log(f"[mesh] {key} plan (stacked engine): tables, read and stat "
+            f"bit for bit; launches {launches}; " +
+            "; ".join(f"{c} {res[c]['ms']:.3f} ms, {res[c]['launches']}/"
+                      f"{res[c]['syncs']}/{res[c]['htod']} launches/syncs/"
+                      f"copies, busy {res[c]['busy_ms']:.3f}"
+                      for c in ("write", "read", "stat")) +
+            f"; peak {res['peak_gib']:.2f} GiB")
+        del calls, state
+    return out
+
+
+def mesh_client(seed: int, policy, counters: dict, mesh) -> dict:
+    """(i) 3: ``BBClient(policy, mesh)`` over the process group's backend,
+    through ``counted_drive`` (the stacked client's gate, mesh specs
+    counted by their ``dest_histogram2d`` launches), its tables equal to a
+    stacked client's after the same calls; latency beside the stacked
+    client's, the profile with the NCCL kernels' device ms, the bytes the
+    ``all_to_all``s of one call carry, and peak memory."""
+    import torch.distributed as dist
+
+    from repro_torch.core.client import BBClient
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    client, batches, launches, planner = counted_drive(
+        "mesh client", policy, drive_deployment,
+        tuple(counters[k] for k in ("route_plan", "dest_histogram2d",
+                                    "pack_chunks")), gen, backend=mesh)
+    specs = list(client.last_specs.values())
+    check(specs and all(type(s).__name__ == "MeshRaggedSpec" and
+                        s.executor == "padded" for s in specs),
+          "mesh client: planned specs other than padded mesh ones")
+    stacked = BBClient(policy, cap=CAP, words=WORDS, mcap=MCAP)
+    drive_deployment(stacked, torch.Generator(device=DEVICE).manual_seed(
+        seed + 11))
+    same_tables(client.state, stacked.state, "mesh client")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, _, req, rreq = batches[-1]
+    out = {"launches": launches, "rounds": planner.rounds,
+           "specs": planner.specs, "peak_gib": peak}
+    sent = []
+    real = dist.all_to_all_single
+
+    def counted(output, input, *a, **k):
+        sent.append(input.numel() * input.element_size())
+        return real(output, input, *a, **k)
+
+    for name, c in (("mesh", client), ("stacked", stacked)):
+        calls = {"write": lambda c=c: c.write(req),
+                 "read": lambda c=c: c.read(rreq),
+                 "stat": lambda c=c: c.stat(req)}
+        out[name] = call_stats(f"mesh client ({name})", calls)
+        if name == "mesh":
+            for call, fn in calls.items():
+                sent.clear()
+                dist.all_to_all_single = counted
+                try:
+                    fn()
+                finally:
+                    dist.all_to_all_single = real
+                out[name][call]["all_to_all"] = len(sent)
+                out[name][call]["all_to_all_bytes"] = sum(sent)
+    log(f"[mesh] client on a {mesh.world}-rank {mesh.backend} mesh "
+        f"({mesh.device}): every read bit for bit, tables equal to the "
+        f"stacked client's; {planner.rounds} rounds, {planner.specs} mesh "
+        f"specs, launches {launches}; peak {peak:.2f} GiB")
+    for call in ("write", "read", "stat"):
+        m, s_ = out["mesh"][call], out["stacked"][call]
+        log(f"[mesh]   {call}: mesh {m['ms']:.3f} ms ({m['launches']}/"
+            f"{m['syncs']}/{m['htod']}, busy {m['busy_ms']:.3f}, NCCL "
+            f"{m['nccl_ms']:.3f} ms device over {m['all_to_all']} "
+            f"all_to_all of {m['all_to_all_bytes'] / 2 ** 30:.3f} GiB) vs "
+            f"stacked {s_['ms']:.3f} ms ({s_['launches']}/{s_['syncs']}/"
+            f"{s_['htod']}, busy {s_['busy_ms']:.3f})")
+    return out
+
+
+def mesh_collectives(mesh) -> None:
+    """(i) 5: at world size 1 the shift is the identity, ``mesh_exchange``
+    the stacked transpose, ``mesh_global_sum`` the sum, and
+    ``build_telemetry_reduce`` of a telemetry client's counters its
+    ``snapshot()``."""
+    from repro_torch.core import mesh_engine as me
+    from repro_torch.core.client import BBClient
+    from repro_torch.core.policy import LayoutPolicy
+    x = torch.arange(4 * 4 * 3 * 5, dtype=torch.int32,
+                     device=DEVICE).reshape(4, 4, 3, 5)
+    shift = me.build_mesh_shift(mesh)
+    check(all(shift(x, k) is x for k in (1, 3, -2)),
+          "the shift at world size 1 is not the identity")
+    check(torch.equal(me.mesh_exchange(x, mesh), x.transpose(0, 1)),
+          "mesh_exchange at world size 1 is not the transpose")
+    check(int(me.mesh_global_sum(x, mesh)) == int(x.sum()),
+          "mesh_global_sum is not the sum")
+    client = BBClient(LayoutPolicy.from_scopes({ADAPT_SCOPE: 1}, n_nodes=8,
+                                               default=3), mesh, cap=64,
+                      words=16, mcap=64, telemetry=True)
+    rng = np.random.RandomState(5)
+    paths = [[f"{ADAPT_SCOPE}/r{i}/f{j % 3}" if j % 2 else f"/x/{i}/{j}"
+              for j in range(6)] for i in range(8)]
+    req = client.encode(paths, chunk_id=rng.randint(0, 4, (8, 6)),
+                        payload=rng.randint(0, 999, (8, 6, 16)))
+    client.write(req)
+    client.read(req)
+    client.stat(req)
+    red = me.build_telemetry_reduce(mesh)(client.telemetry.counts)
+    check(np.array_equal(red.cpu().numpy(), client.telemetry.snapshot()),
+          "build_telemetry_reduce differs from the snapshot")
+    log("[mesh] world size 1: shift identity, all_to_all = transpose, "
+        "global sum = sum, telemetry reduce = snapshot")
+
+
+def phase_mesh(seed: int, counters: dict) -> dict:
+    """(i): the examples, the mesh plans through the stacked engine, the
+    mesh client on a world of one rank, the dry-run's BB cell and the
+    collectives at world size 1.  ``counters``: name → launch counter of
+    route_plan, dest_budgets, dest_histogram2d and pack_chunks; returns
+    the phase's numbers and the launches of its mesh client (the main
+    path's)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import mesh_engine as me
+    from repro_torch.launch.dryrun import run_bb_cell
+    t0 = time.perf_counter()
+    out = {"examples_ms": run_examples()}
+    policy = deployment_policy()
+    out["plans"] = mesh_plans(seed, policy, counters)
+    mesh = me.make_node_mesh(device=None if DEVICE == "cuda" else DEVICE)
+    try:
+        check(mesh.device.type == DEVICE and
+              mesh.backend == me.BACKENDS[DEVICE] and
+              dist.get_backend() == me.BACKENDS[DEVICE],
+              f"make_node_mesh gave {mesh} on {dist.get_backend()}")
+        out["client"] = mesh_client(seed, policy, counters, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = run_bb_cell(Path(tmp), 8, mesh)
+            check(rec["status"] == "ok" and rec["backend"] ==
+                  me.BACKENDS[DEVICE] and
+                  (Path(tmp) / "bb-client__n8q8w16__node.json").exists(),
+                  f"the BB cell's record {rec}")
+        log(f"[mesh] dry-run BB cell at world size {rec['ranks']} on "
+            f"{rec['backend']}: heterogeneous policy, mesh/stacked parity")
+        mesh_collectives(mesh)
+    finally:
+        dist.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase i wall {out['wall_s']:.3f} s")
     return out
 
 
@@ -3215,6 +3663,15 @@ def main() -> int:
         decide = phase_decide(args.seed, counters, ckpt_counters,
                               adapt["hot_signature"])
         log(json.dumps({"decide": decide}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "mesh"
+        mesh = phase_mesh(args.seed, {c.name: c for c in (
+            ROUTE_PLAN, DEST_BUDGETS, DEST_HISTOGRAM2D, PACK_CHUNKS)})
+        for k, n in mesh["client"]["launches"].items():
+            launches[k] += n
+        log(json.dumps({"mesh": mesh}))
+        gc.collect()
         torch.cuda.empty_cache()
         phase = "train"
         train = phase_train(args.seed, ckpt_counters,

@@ -160,18 +160,21 @@ class ScopeTelemetry:
     adaptation controller snapshots/diffs :attr:`counts` per tick.
     """
 
-    def __init__(self, policy, per_node: int = 0, device=None):
+    def __init__(self, policy, per_node: int = 0, device=None,
+                 reduce=None):
         """Build rows for the policy's scopes (+ the default row 0), on
         ``device`` (CUDA unless given).
 
         ``per_node`` > 0 keeps one counter slice per node — shape
         (per_node, S, F), each request row adding into its own node's
-        slice — the layout the reference's mesh backend reduces
-        fleet-wide.  ``snapshot``/``signatures`` always present the
-        reduced (S, F) view.
+        slice — the layout a mesh client keeps for its rank's rows.
+        ``reduce`` (the mesh's ``build_telemetry_reduce``) sums such
+        counters over every rank.  ``snapshot``/``signatures`` always
+        present the reduced (S, F) view.
         """
         policy = as_policy(policy)
         self.device = resolve_device(device)
+        self.reduce = reduce
         self.scope_names = (DEFAULT_SCOPE,) + tuple(
             s for s, _ in policy.scopes)
         self.table: Tuple[int, ...] = tuple(
@@ -191,7 +194,7 @@ class ScopeTelemetry:
         """
         policy = as_policy(policy)
         new = ScopeTelemetry(policy, per_node=self.per_node,
-                             device=self.device)
+                             device=self.device, reduce=self.reduce)
         old_rows = {h: i + 1 for i, h in enumerate(self.table)}
         src = [0] + [old_rows.get(h, -1) for h in new.table]
         keep = torch.as_tensor([i >= 0 for i in src], device=self.device)
@@ -232,7 +235,10 @@ class ScopeTelemetry:
 
     def snapshot(self) -> np.ndarray:
         """Host copy of the (S, F) counter view (controller bookkeeping);
-        a per-node layout is summed over its node axis."""
+        a per-node layout is summed over its node axis, over every rank of
+        a mesh (``reduce``), so every rank reads the same counters."""
+        if self.reduce is not None:
+            return self.reduce(self.counts).cpu().numpy().copy()
         c = self.counts.cpu().numpy()
         return (c.sum(axis=0) if self.per_node else c).copy()
 

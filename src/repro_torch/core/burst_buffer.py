@@ -26,9 +26,14 @@ Differences from the JAX engine, none visible in any result:
   resolved to its last update before the scatter (``_scatter_last``), so
   the result does not depend on the order in which the card applies
   duplicate writes.
-* **Stranded-data broadcast.** ``_broadcast_lookup`` resolves which node
-  holds each missed chunk from the key tables alone and gathers only those
-  rows, instead of materialising every node's payload for every request.
+* **Stranded-data broadcast.** On the stacked backend
+  ``_broadcast_lookup`` resolves which node holds each missed chunk from
+  the key tables alone and gathers only those rows, instead of
+  materialising every node's payload for every request; the tombstone
+  broadcast of a relayout likewise reads every node's requests in place.
+  On the mesh a rank holds only its own rows, so both take the
+  reference's form there: every request crosses the ``exchange`` hook to
+  every node.
 * **Re-compaction.** ``_clear_chunks`` gathers the surviving rows into a
   new table and swaps it into the state (a gather cannot write into its
   own source), so a relayout holds one extra data table at its peak.
@@ -36,11 +41,17 @@ Differences from the JAX engine, none visible in any result:
 The entry points carry the reference's ``engine.*`` spans, and the fused
 write its ``exchange.plan/pack/apply`` spans, while a flight recorder is
 active (``repro_torch.core.obs``).
+
+Backends: the entry points take the reference's collective hooks,
+``exchange``, ``node_ids``, ``global_sum`` and ``shift``, defaulting to
+the stacked ones (every node's rows on one device, row index = rank).
+``mesh_engine`` passes the ``torch.distributed`` ones, with the tables
+and requests of the rank's own rows and ``node_ids`` their global ranks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,9 +59,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import obs
 from repro_torch.core.exchange_plan import (  # noqa: F401  (re-exports)
-    COMPACTED, DENSE, LOCAL_WRITE_MODES, ExchangeConfig, RaggedSpec,
-    data_budget, exchange_footprint, fused_send, fused_write_plan,
-    meta_budget, plan_ragged_spec, run_exchange)
+    COMPACTED, DENSE, LOCAL_WRITE_MODES, ExchangeConfig, MeshRaggedSpec,
+    RaggedSpec, data_budget, exchange_footprint, fused_send,
+    fused_write_plan, meta_budget, plan_mesh_ragged_spec, plan_ragged_spec,
+    run_exchange, stacked_exchange, stacked_shift)
 from repro_torch.core.layouts import LayoutMode, route_data, route_meta
 from repro_torch.core.policy import LayoutPolicy, as_policy
 from repro_torch.kernels.chunk_pack.ops import gather_rows_batched
@@ -314,7 +326,12 @@ def _meta_write_apply(state: BBState, key: torch.Tensor, size: torch.Tensor,
 # client-visible batched operations — every cross-node phase is ONE
 # ``run_exchange`` call: a request buffer plus a receiver-side apply
 # ---------------------------------------------------------------------------
-def _client_ranks(L: int, device) -> torch.Tensor:
+def _client_ranks(L: int, device,
+                  node_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(L, 1) global ranks of the local rows: the row index on the stacked
+    backend, ``node_ids`` on the mesh."""
+    if node_ids is not None:
+        return node_ids.to(I32).reshape(L, 1)
     return torch.arange(L, dtype=I32, device=device)[:, None]
 
 
@@ -346,7 +363,7 @@ def _fused_write(state: BBState, policy: LayoutPolicy, executors,
                  dest: torch.Tensor, valid: torch.Tensor, mode: torch.Tensor,
                  path_hash: torch.Tensor, chunk_id: torch.Tensor,
                  payload: torch.Tensor, keys: torch.Tensor,
-                 client: torch.Tensor) -> BBState:
+                 client: torch.Tensor, exchange) -> BBState:
     """The fused write: data and metadata planes in one round, no reply.
 
     Each plane packs under its own plan; ``fused_send`` hands each plane's
@@ -364,12 +381,12 @@ def _fused_write(state: BBState, policy: LayoutPolicy, executors,
                             torch.ones_like(op)], dim=-1)
     with obs.span("exchange.plan", cat="trace", role="fused_write",
                   kind="compacted"):
-        plan_d = ex_d.plan(dest, valid)
-        plan_m = ex_m.plan(owner, valid)
+        plan_d = ex_d.plan(dest, valid, client=client)
+        plan_m = ex_m.plan(owner, valid, client=client)
     with obs.span("exchange.pack", cat="trace", role="fused_write",
                   executor=type(ex_d).__name__):
-        recv_d, rv_d, recv_m, rv_m = fused_send(ex_d, plan_d, fields_d,
-                                                ex_m, plan_m, fields_m)
+        recv_d, rv_d, recv_m, rv_m = fused_send(
+            ex_d, plan_d, fields_d, ex_m, plan_m, fields_m, exchange)
     with obs.span("exchange.apply", cat="trace", role="fused_write"):
         state = _append_chunks(state, recv_d[..., :2], recv_d[..., 2:2 + w],
                                rv_d)
@@ -384,19 +401,28 @@ def forward_write(state: BBState, layout, path_hash: torch.Tensor,
                   chunk_id: torch.Tensor, payload: torch.Tensor,
                   valid: torch.Tensor, mode: Optional[torch.Tensor] = None,
                   config: ExchangeConfig = DENSE,
-                  update_meta: bool = True) -> BBState:
+                  update_meta: bool = True, *,
+                  exchange: Callable = stacked_exchange,
+                  node_ids: Optional[torch.Tensor] = None,
+                  global_sum: Callable = torch.sum,
+                  shift: Callable = stacked_shift) -> BBState:
     """Each node writes a batch of chunks (tables updated in place).
 
-    path_hash/chunk_id/valid: (N, q); payload: (N, q, w), converted to the
-    int32 tables (a float payload truncates, as in the JAX engine).
-    ``mode`` is the per-request mode array (policy default when omitted);
-    its values must be members of ``policy.modes_present()``.  ``config``
-    picks the exchange plane.  ``update_meta=False`` skips the metadata
-    create/update round.
+    path_hash/chunk_id/valid: (L, q); payload: (L, q, w), converted to the
+    int32 tables (a float payload truncates, as in the JAX engine).  L is
+    the local node count (N stacked, the rank's rows on the mesh);
+    ``node_ids`` are their global ranks.  ``mode`` is the per-request mode
+    array (policy default when omitted); its values must be members of
+    ``policy.modes_present()``.  ``config`` picks the exchange plane.
+    ``update_meta=False`` skips the metadata create/update round.
+    ``exchange``/``shift`` are the collective hooks and ``global_sum``
+    reduces over every node (see ``exchange_plan.run_exchange``).
     """
     policy = as_policy(layout)
     N = policy.n_nodes
-    client = _client_ranks(state.data.shape[0], path_hash.device)
+    hooks = dict(exchange=exchange, node_ids=node_ids,
+                 global_sum=global_sum, shift=shift)
+    client = _client_ranks(state.data.shape[0], path_hash.device, node_ids)
     mode = _mode_array(policy, mode, path_hash)
     path_hash, chunk_id = path_hash.to(I32), chunk_id.to(I32)
     payload = payload.to(I32)
@@ -408,7 +434,8 @@ def forward_write(state: BBState, layout, path_hash: torch.Tensor,
         fplan = fused_write_plan(policy, dest.shape[1], config)
         if fplan is not None:
             return _fused_write(state, policy, fplan, dest, valid, mode,
-                                path_hash, chunk_id, payload, keys, client)
+                                path_hash, chunk_id, payload, keys, client,
+                                exchange)
     if local_only:
         # every possible mode writes locally: no exchange at all
         state = _append_chunks(state, keys, payload, valid)
@@ -420,7 +447,9 @@ def forward_write(state: BBState, layout, path_hash: torch.Tensor,
                                   rvalid), None
 
         state, _, served, overflow = run_exchange(
-            "data", policy, config, dest, valid, fields, apply, state=state)
+            "data", policy, config, dest, valid, fields, apply, state=state,
+            exchange=exchange, shift=shift, global_sum=global_sum,
+            client=client)
         if config.kind == "compacted" and not config.lossless:
             state.dropped += overflow
             # a write whose payload overflowed must not register metadata
@@ -429,7 +458,7 @@ def forward_write(state: BBState, layout, path_hash: torch.Tensor,
         return state
     op, loc = _write_meta_fields(mode, chunk_id, client)
     state, _, _, _ = meta_op(state, policy, op, path_hash, chunk_id + 1, loc,
-                             meta_valid, mode, config)
+                             meta_valid, mode, config, **hooks)
     return state
 
 
@@ -438,17 +467,24 @@ def forward_read(state: BBState, layout, path_hash: torch.Tensor,
                  chunk_id: torch.Tensor, valid: torch.Tensor,
                  mode: Optional[torch.Tensor] = None,
                  config: ExchangeConfig = DENSE,
-                 data_loc: Optional[torch.Tensor] = None
+                 data_loc: Optional[torch.Tensor] = None, *,
+                 exchange: Callable = stacked_exchange,
+                 node_ids: Optional[torch.Tensor] = None,
+                 global_sum: Callable = torch.sum,
+                 shift: Callable = stacked_shift
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each node reads a batch of chunks → (payload (N, q, w), found).
+    """Each node reads a batch of chunks → (payload (L, q, w), found).
 
-    ``data_loc`` (optional, (N, q)) skips the hybrid metadata phase with
+    ``data_loc`` (optional, (L, q)) skips the hybrid metadata phase with
     precomputed data-location ranks (the client's two-phase read).
     Mode-1/4 misses are searched on every node (stranded-data broadcast).
+    Hooks as ``forward_write``'s.
     """
     policy = as_policy(layout)
     N = policy.n_nodes
-    client = _client_ranks(state.data.shape[0], path_hash.device)
+    hooks = dict(exchange=exchange, node_ids=node_ids,
+                 global_sum=global_sum, shift=shift)
+    client = _client_ranks(state.data.shape[0], path_hash.device, node_ids)
     mode = _mode_array(policy, mode, path_hash)
     path_hash, chunk_id = path_hash.to(I32), chunk_id.to(I32)
     present = policy.modes_present()
@@ -460,17 +496,20 @@ def forward_read(state: BBState, layout, path_hash: torch.Tensor,
         _, found_m, _, loc = meta_op(
             state, policy, torch.full_like(path_hash, OP_STAT), path_hash,
             torch.zeros_like(path_hash), torch.full_like(path_hash, -1),
-            valid & (mode == LayoutMode.HYBRID), mode, config)
+            valid & (mode == LayoutMode.HYBRID), mode, config, **hooks)
         data_loc = torch.where(found_m & (loc >= 0), loc,
                                torch.broadcast_to(client, path_hash.shape))
     dest = route_data(mode, N, path_hash, chunk_id, client,
                       data_loc=data_loc)
-    payload, found = routed_lookup(state, policy, dest, keys, valid, config)
+    payload, found = routed_lookup(state, policy, dest, keys, valid, config,
+                                   exchange=exchange, shift=shift,
+                                   global_sum=global_sum, client=client)
     if present & LOCAL_WRITE_MODES:
         # stranded-data fallback: search every node for Mode-1/4 misses
         miss = valid & ~found & ((mode == LayoutMode.NODE_LOCAL) |
                                  (mode == LayoutMode.HYBRID))
-        bpay, bfound = _broadcast_lookup(state, keys, miss, N)
+        bpay, bfound = _broadcast_lookup(state, keys, miss, N, exchange,
+                                         global_sum, node_ids)
         payload = torch.where(bfound[..., None], bpay, payload)
         found = found | bfound
     return payload, found
@@ -478,12 +517,19 @@ def forward_read(state: BBState, layout, path_hash: torch.Tensor,
 
 def routed_lookup(state: BBState, layout, dest: torch.Tensor,
                   keys: torch.Tensor, valid: torch.Tensor,
-                  config: ExchangeConfig = DENSE
+                  config: ExchangeConfig = DENSE, *,
+                  exchange: Callable = stacked_exchange,
+                  shift: Callable = stacked_shift,
+                  global_sum: Callable = torch.sum,
+                  client: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One planned chunk lookup at explicit destinations → (payload,
     found): route the keys, look the chunks up, route (payload, found)
-    back."""
+    back.  ``client``: the local rows' (L, 1) ranks (the row index when
+    omitted)."""
     policy = as_policy(layout)
+    if client is None:
+        client = _client_ranks(state.data.shape[0], dest.device)
     fields = torch.cat([keys, _ones_col(keys)], dim=-1)
 
     def apply(st, recv, rvalid):
@@ -491,20 +537,35 @@ def routed_lookup(state: BBState, layout, dest: torch.Tensor,
         return None, torch.cat([pay, fnd[..., None].to(I32)], dim=-1)
 
     _, out, _, _ = run_exchange("data", policy, config, dest, valid, fields,
-                                apply, state=state)
+                                apply, state=state, exchange=exchange,
+                                shift=shift, global_sum=global_sum,
+                                client=client)
     return out[..., :-1], (out[..., -1] > 0) & valid
 
 
 def _broadcast_lookup(state: BBState, keys: torch.Tensor,
-                      valid: torch.Tensor, N: int
+                      valid: torch.Tensor, N: int,
+                      exchange: Callable = stacked_exchange,
+                      global_sum: Callable = torch.sum,
+                      node_ids: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Query every node for every (valid) request: the reply comes from the
     lowest-ranked node holding the chunk, its newest version.
 
-    Equal to the JAX package's exchange of every node's full payload reply:
-    which node answers is decided from the key tables alone, and only the
-    answering rows are gathered.
+    Stacked (``node_ids`` None): equal to the JAX package's exchange of
+    every node's full payload reply, but which node answers is decided
+    from the key tables alone, and only the answering rows are gathered.
+    On the mesh (``node_ids`` given) it takes the reference's form through
+    ``exchange``, which moves every node's payload reply for every
+    request: it is skipped when no request of any node missed
+    (``global_sum``, so every rank agrees), and the result is the same.
     """
+    if node_ids is not None:
+        if not bool((global_sum(valid) > 0).item()):
+            L, q = valid.shape
+            return (state.data.new_zeros((L, q, state.data.shape[2])),
+                    torch.zeros_like(valid))
+        return _broadcast_lookup_exchanged(state, keys, valid, N, exchange)
     L, q = valid.shape
     all_keys = keys.reshape(1, L * q, 2).expand(N, L * q, 2)
     all_valid = valid.reshape(1, L * q).expand(N, L * q)
@@ -517,20 +578,46 @@ def _broadcast_lookup(state: BBState, keys: torch.Tensor,
     return payload.masked_fill_(~found_any[..., None], 0), found_any & valid
 
 
+def _broadcast_lookup_exchanged(state: BBState, keys: torch.Tensor,
+                                valid: torch.Tensor, N: int,
+                                exchange: Callable
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's broadcast: every request to every node through
+    ``exchange``, every node's reply back, the first node that found the
+    chunk answers."""
+    L, q = valid.shape
+    rk = exchange(keys[:, None].expand(L, N, q, 2).contiguous())
+    rv = exchange(valid[:, None].expand(L, N, q).contiguous())
+    pay, fnd = _lookup_chunks(state, rk.reshape(L, N * q, 2),
+                              rv.reshape(L, N * q))
+    pay = exchange(pay.reshape(L, N, q, -1))               # (L, N_dst, q, w)
+    fnd = exchange(fnd.reshape(L, N, q))
+    found_any = fnd.any(dim=1)
+    first = torch.argmax(fnd.to(I32), dim=1)                # (L, q)
+    payload = torch.gather(
+        pay, 1, first[:, None, :, None].expand(L, 1, q, pay.shape[3]))[:, 0]
+    return payload.masked_fill_(~found_any[..., None], 0), found_any & valid
+
+
 @obs.trace_span("engine.meta_op")
 def meta_op(state: BBState, layout, op: torch.Tensor,
             path_hash: torch.Tensor, size: torch.Tensor, loc: torch.Tensor,
             valid: torch.Tensor, mode: Optional[torch.Tensor] = None,
-            config: ExchangeConfig = DENSE):
+            config: ExchangeConfig = DENSE, *,
+            exchange: Callable = stacked_exchange,
+            node_ids: Optional[torch.Tensor] = None,
+            global_sum: Callable = torch.sum,
+            shift: Callable = stacked_shift):
     """Batched metadata operations routed to their per-request-mode owners.
 
-    Returns (state, found (N, q), size (N, q), loc (N, q)); the tables are
+    Returns (state, found (L, q), size (L, q), loc (L, q)); the tables are
     updated in place.  Under ``lossless=False`` ops beyond the per-owner
     budget are dropped: found=False replies, counted in ``dropped``.
+    Hooks as ``forward_write``'s.
     """
     policy = as_policy(layout)
     N = policy.n_nodes
-    client = _client_ranks(state.data.shape[0], path_hash.device)
+    client = _client_ranks(state.data.shape[0], path_hash.device, node_ids)
     mode = _mode_array(policy, mode, path_hash)
     path_hash = path_hash.to(I32)
     owner = route_meta(mode, N, policy.n_md_servers, path_hash, client)
@@ -547,7 +634,8 @@ def meta_op(state: BBState, layout, op: torch.Tensor,
     # still reads as found=False in the first column
     state, out, _, overflow = run_exchange(
         "meta", policy, config, owner, valid, fields, apply, state=state,
-        reply_fill=-1)
+        exchange=exchange, shift=shift, global_sum=global_sum,
+        client=client, reply_fill=-1)
     if config.kind == "compacted" and not config.lossless:
         state.dropped += overflow
     return state, (out[..., 0] > 0) & valid, out[..., 1], out[..., 2]
@@ -604,39 +692,55 @@ def _clear_chunks(state: BBState, keys: torch.Tensor,
 
 
 def _tombstone_broadcast(state: BBState, keys: torch.Tensor,
-                         valid: torch.Tensor, keep_rank: torch.Tensor
+                         valid: torch.Tensor, keep_rank: torch.Tensor,
+                         exchange: Callable = stacked_exchange,
+                         n_nodes: Optional[int] = None,
+                         node_ids: Optional[torch.Tensor] = None
                          ) -> BBState:
     """Clear old copies of migrated chunks on every node but the new owner.
 
     keys: (L, q, 2); valid/keep_rank: (L, q) — ``keep_rank`` is the rank
     that now holds the chunk (its copy survives).  Every node receives
-    every row (the reference's broadcast exchange, which on the stacked
-    backend is each row's requests repeated for every receiver), because
-    Mode-1/4 sources scatter copies by *writer* rank, which the migrator
-    cannot reconstruct.
+    every row, because Mode-1/4 sources scatter copies by *writer* rank,
+    which the migrator cannot reconstruct.  Stacked (``node_ids`` None),
+    the reference's broadcast exchange is each row's requests repeated for
+    every receiver; on the mesh (``n_nodes`` and the rows' ``node_ids``)
+    ``exchange`` carries them across.
     """
     L, q = valid.shape
-    kb = keys.reshape(1, L * q, 2).expand(L, L * q, 2)
-    vb = valid.reshape(1, L * q).expand(L, L * q)
-    pb = keep_rank.reshape(1, L * q).expand(L, L * q)
-    me = _client_ranks(L, valid.device)                       # (L, 1)
-    return _clear_chunks(state, kb, vb & (pb != me))
+    me = _client_ranks(L, valid.device, node_ids)             # (L, 1)
+    if node_ids is None:
+        kb = keys.reshape(1, L * q, 2).expand(L, L * q, 2)
+        vb = valid.reshape(1, L * q).expand(L, L * q)
+        pb = keep_rank.reshape(1, L * q).expand(L, L * q)
+        return _clear_chunks(state, kb, vb & (pb != me))
+    N = n_nodes
+    kb = exchange(keys[:, None].expand(L, N, q, 2).contiguous())
+    vb = exchange(valid[:, None].expand(L, N, q).contiguous())
+    pb = exchange(keep_rank[:, None].expand(L, N, q).contiguous())
+    ok = vb.reshape(L, -1) & (pb.reshape(L, -1) != me)
+    return _clear_chunks(state, kb.reshape(L, -1, 2), ok)
 
 
 @obs.trace_span("engine.migrate_rows")
 def migrate_rows(state: BBState, layout, path_hash: torch.Tensor,
                  chunk_id: torch.Tensor, valid: torch.Tensor,
                  old_mode: torch.Tensor, new_mode: torch.Tensor,
-                 config: ExchangeConfig = COMPACTED
+                 config: ExchangeConfig = COMPACTED, *,
+                 exchange: Callable = stacked_exchange,
+                 node_ids: Optional[torch.Tensor] = None,
+                 global_sum: Callable = torch.sum,
+                 shift: Callable = stacked_shift
                  ) -> Tuple[BBState, torch.Tensor, torch.Tensor]:
     """Move one installment of chunks from old-mode to new-mode placement.
 
-    path_hash/chunk_id/valid: (N, q) worklist rows; ``old_mode``/
-    ``new_mode``: (N, q) per-request ``LayoutMode`` arrays, both members
+    path_hash/chunk_id/valid: (L, q) worklist rows; ``old_mode``/
+    ``new_mode``: (L, q) per-request ``LayoutMode`` arrays, both members
     of the policy's ``modes_present()`` (the transition policy a
-    ``LiveMigrator`` installs guarantees this).
+    ``LiveMigrator`` installs guarantees this).  Hooks as
+    ``forward_write``'s.
 
-    Returns (state, moved (N, q), found_old (N, q)); the tables are updated
+    Returns (state, moved (L, q), found_old (L, q)); the tables are updated
     in place.  The reference's five steps, in its order — lossless at
     every step:
 
@@ -663,7 +767,9 @@ def migrate_rows(state: BBState, layout, path_hash: torch.Tensor,
             "ragged spec sized for one of them would drop requests of the "
             "other — use uniform budgets (lossless carry covers overflow)")
     N = policy.n_nodes
-    client = _client_ranks(state.data.shape[0], path_hash.device)
+    hooks = dict(exchange=exchange, node_ids=node_ids,
+                 global_sum=global_sum, shift=shift)
+    client = _client_ranks(state.data.shape[0], path_hash.device, node_ids)
     old_mode, new_mode = old_mode.to(I32), new_mode.to(I32)
     path_hash, chunk_id = path_hash.to(I32), chunk_id.to(I32)
     keys = torch.stack([path_hash, chunk_id], dim=-1)
@@ -674,7 +780,8 @@ def migrate_rows(state: BBState, layout, path_hash: torch.Tensor,
 
     # 1. old-epoch fetch
     payload, found_old = forward_read(state, policy, path_hash, chunk_id,
-                                      valid, mode=old_mode, config=config)
+                                      valid, mode=old_mode, config=config,
+                                      **hooks)
 
     # 2. the new epoch's metadata (read-only: loc resolves hybrid probe
     # destinations; size carries an already-propagated stat size), then
@@ -683,20 +790,21 @@ def migrate_rows(state: BBState, layout, path_hash: torch.Tensor,
     write_dest = route_data(new_mode, N, path_hash, chunk_id, client)
     _, fm_new, sz_new, loc_new = meta_op(
         state, policy, full(OP_STAT), path_hash, full(0), full(-1), valid,
-        mode=new_mode, config=config)
+        mode=new_mode, config=config, **hooks)
     probe_dest = write_dest
     if LayoutMode.HYBRID in policy.modes_present():
         probe_dest = torch.where(
             (new_mode == LayoutMode.HYBRID) & fm_new & (loc_new >= 0),
             loc_new, write_dest)
     _, found_new = routed_lookup(state, policy, probe_dest, keys, valid,
-                                 config)
+                                 config, exchange=exchange, shift=shift,
+                                 global_sum=global_sum, client=client)
 
     # 3. copy the missing rows to their new placement — data only
     moved = valid & found_old & ~found_new
     state = forward_write(state, policy, path_hash, chunk_id, payload,
                           moved, mode=new_mode, config=config,
-                          update_meta=False)
+                          update_meta=False, **hooks)
 
     # 4. metadata epoch move: the old owner's exact stat size at the new
     # owner (UPDATE upserts, restricted to rows whose metadata exists in
@@ -707,20 +815,22 @@ def migrate_rows(state: BBState, layout, path_hash: torch.Tensor,
                            client)
     _, found_m, sz_old, _ = meta_op(
         state, policy, full(OP_STAT), path_hash, full(0), full(-1), valid,
-        mode=old_mode, config=config)
+        mode=old_mode, config=config, **hooks)
     size_fix = torch.where(found_m, sz_old, sz_new)
     loc_fix = torch.where(moved & (new_mode == LayoutMode.HYBRID),
                           torch.broadcast_to(client, shape), -1).to(I32)
     state, _, _, _ = meta_op(
         state, policy, full(OP_UPDATE), path_hash, size_fix, loc_fix,
-        valid & (found_m | fm_new), mode=new_mode, config=config)
+        valid & (found_m | fm_new), mode=new_mode, config=config, **hooks)
     state, _, _, _ = meta_op(
         state, policy, full(OP_REMOVE), path_hash, full(0), full(-1),
-        valid & (owner_old != owner_new), mode=old_mode, config=config)
+        valid & (owner_old != owner_new), mode=old_mode, config=config,
+        **hooks)
 
     # 5. tombstone the old copies — keep the rank holding the surviving
     # new-epoch copy (the write destination for rows copied now, the probe
     # destination for rows already in place)
     keep = torch.where(moved, write_dest, probe_dest)
-    state = _tombstone_broadcast(state, keys, valid & found_old, keep)
+    state = _tombstone_broadcast(state, keys, valid & found_old, keep,
+                                 exchange, N, node_ids)
     return state, moved, found_old

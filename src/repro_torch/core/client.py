@@ -1,11 +1,21 @@
-"""BBClient: the burst-buffer facade on the stacked backend (twin of
-``repro.core.client``).
+"""BBClient: the burst-buffer facade (twin of ``repro.core.client``).
 
 Construct from a ``LayoutPolicy`` and get batched
 ``write/read/stat/create/remove`` with per-request layout modes resolved from
 path scopes.  Requests are node-major ``(n_nodes, q)`` tensors
 (``BBRequest``); ``encode`` builds one from path strings.  The tables live
 on the CUDA card unless ``device`` names another device.
+
+``backend`` is ``"stacked"`` (every node's tables on one device) or a
+``mesh_engine.NodeMesh``: one process a rank over ``torch.distributed``,
+each rank holding its own node rows.  On a mesh every rank makes the same
+calls with the same global requests; the calls return the rank's rows of
+each result (``mesh.gather`` gives the global array), and every host
+decision is made from global values (the requests, all-gathered replies,
+all-reduced counters), so the ranks take the same branches and their
+collectives line up.  Measured specs on a mesh are ``MeshRaggedSpec``s:
+the padded plan, or the ppermute plan when nodes are 1:1 with ranks and
+the fabric model picks it.
 
 ``exchange=`` picks the exchange plane per call:
 
@@ -27,7 +37,6 @@ takes a flight recorder (``repro_torch.core.obs.TraceRecorder``): every
 call then records fenced ``client.*`` spans, byte and carry accounting and
 the audit of each pick.
 
-Not ported yet: the mesh backend.
 """
 from __future__ import annotations
 
@@ -94,18 +103,57 @@ class BBRequest:
     host: Optional[Dict[str, np.ndarray]] = None
 
 
+def _stacked_ops(policy, config: bb.ExchangeConfig) -> Tuple:
+    """(write, read, meta, read_loc) of the stacked backend, with the
+    mesh ops' signatures (``mesh_engine.build_mesh_ops``)."""
+    def write(state, mode, ph, cid, payload, valid):
+        return bb.forward_write(state, policy, ph, cid, payload, valid,
+                                mode=mode, config=config)
+
+    def read(state, mode, ph, cid, valid):
+        return bb.forward_read(state, policy, ph, cid, valid, mode=mode,
+                               config=config)
+
+    def meta(state, mode, op, ph, size, loc, valid):
+        return bb.meta_op(state, policy, op, ph, size, loc, valid, mode=mode,
+                          config=config)
+
+    def read_loc(state, mode, ph, cid, valid, data_loc):
+        return bb.forward_read(state, policy, ph, cid, valid, mode=mode,
+                               config=config, data_loc=data_loc)
+
+    return write, read, meta, read_loc
+
+
+def _stacked_probe(policy, config: bb.ExchangeConfig):
+    """The two-phase read's probe on the stacked backend: (state, mode, ph,
+    valid) → (found, loc), one STAT ``meta_op``."""
+    def probe(state, mode, ph, valid):
+        shape, dev = ph.shape, ph.device
+        _, found, _, loc = bb.meta_op(
+            state, policy, torch.full(shape, bb.OP_STAT, dtype=I32,
+                                      device=dev),
+            ph, torch.zeros(shape, dtype=I32, device=dev),
+            torch.full(shape, -1, dtype=I32, device=dev), valid, mode=mode,
+            config=config)
+        return found, loc
+
+    return probe
+
+
 class BBClient:
-    """Facade over the multi-mode burst-buffer engine (stacked backend).
+    """Facade over the multi-mode burst-buffer engine.
 
     >>> policy = LayoutPolicy.from_scopes(
     ...     {"/bb/ckpt": LayoutMode.HYBRID}, n_nodes=32)
-    >>> client = BBClient(policy)                  # tables on the card
+    >>> client = BBClient(policy)          # or BBClient(policy, mesh)
     >>> req = client.encode(paths, chunk_id=cids, payload=chunks)
     >>> client.write(req)
     >>> out, found = client.read(req)
     """
 
-    def __init__(self, policy, *, device=None, cap: int = 256,
+    def __init__(self, policy, backend="stacked", *, device=None,
+                 cap: int = 256,
                  words: int = 16, mcap: int = 256,
                  state: Optional[bb.BBState] = None, exchange: str = "auto",
                  budget: Optional[int] = None,
@@ -118,13 +166,17 @@ class BBClient:
 
         Args:
           policy: ``LayoutPolicy`` (or ``LayoutParams``); fixes ``n_nodes``.
+          backend: ``"stacked"`` or a ``mesh_engine.NodeMesh``
+            (``make_node_mesh``); on a mesh the client holds the rank's
+            node rows, on the mesh's device.
           device: where the tables live; CUDA when omitted (raises if no
-            card is present — pass ``"cpu"`` for the plain path).
+            card is present — pass ``"cpu"`` for the plain path).  On a
+            mesh, the mesh's device (``device`` may only name its type).
           cap/words/mcap: per-node data slots, chunk width (int32 words)
             and metadata slots of a fresh ``BBState``.
-          state: start from an existing ``BBState`` (on ``device``): its
-            tables are cloned, so ``state`` stays as it was, unless
-            ``donate``.
+          state: start from an existing ``BBState`` of every node (on
+            ``device``): its tables are cloned, so ``state`` stays as it
+            was, unless ``donate``; a mesh client keeps its rank's rows.
           exchange: ``"auto"``, ``"dense"`` or ``"compacted"``.
           budget/meta_budget: explicit uniform per-destination slot counts
             of the compacted data/metadata exchange (no ragged sizing for
@@ -133,7 +185,8 @@ class BBClient:
           lossless: carry uniform-budget overflow into a second round
             (default) instead of dropping and counting it.
           ragged: size compacted budgets per destination from each call's
-            measured histograms.
+            measured histograms (``RaggedSpec`` stacked, ``MeshRaggedSpec``
+            on a mesh).
           two_phase: run hybrid reads as metadata probe → measured data
             round (with ``ragged``).
           pipeline: fuse a lossless write's data and metadata rounds.
@@ -144,7 +197,9 @@ class BBClient:
           telemetry: accumulate per-scope intent counters on every call
             (``repro_torch.core.adapt.telemetry``, on the client's device)
             and keep the host-side write registry the ``LiveMigrator``
-            builds its worklists from.  Off by default.
+            builds its worklists from.  On a mesh the counters are kept
+            per node row and ``snapshot()`` sums them over the mesh
+            (``build_telemetry_reduce``).  Off by default.
           trace: an ``obs.TraceRecorder`` flight recorder: every engine
             call then records a fenced ``client.*`` span, byte/carry/drop
             accounting lands in ``trace.metrics`` and selector picks are
@@ -153,7 +208,21 @@ class BBClient:
         """
         self.policy = as_policy(policy)
         self.n_nodes = self.policy.n_nodes
-        self.device = resolve_device(device)
+        self.backend = backend
+        self.mesh = None if isinstance(backend, str) else backend
+        if self.mesh is None:
+            if backend != "stacked":
+                raise ValueError(f"unknown backend {backend!r}; pass "
+                                 "'stacked' or a NodeMesh")
+            self.device = resolve_device(device)
+            n_rows = self.n_nodes
+        else:
+            self.device = self.mesh.device
+            if device is not None and \
+                    torch.device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{self.device}")
+            n_rows = self.mesh.local_n(self.n_nodes)
         self.words = words
         if exchange not in EXCHANGE_KINDS:
             raise ValueError(f"unknown exchange {exchange!r}; pass one of "
@@ -168,17 +237,26 @@ class BBClient:
             raise ValueError(f"state lives on {state.data.device}, client "
                              f"on {self.device}")
         if state is None:
-            state = bb.init_state(self.n_nodes, cap, words, mcap,
+            state = bb.init_state(n_rows, cap, words, mcap,
                                   device=self.device)
-        elif not donate:
-            state = bb.BBState(*(getattr(state, f.name).clone()
-                                 for f in dataclasses.fields(bb.BBState)))
+        elif self.mesh is not None or not donate:
+            rows = (slice(None) if self.mesh is None
+                    else self.mesh.rows(self.n_nodes))
+            state = bb.BBState(*(
+                getattr(state, f.name)[rows] if donate
+                else getattr(state, f.name)[rows].clone()
+                for f in dataclasses.fields(bb.BBState)))
         self.state = state
         self._path_codes = functools.lru_cache(maxsize=1 << 16)(
             self._path_codes_uncached)
         self._pick_cache: Dict[int, str] = {}
         self.ragged = bool(ragged)
         self.two_phase = bool(two_phase) and self.ragged
+        # the newest measured spec of each role ("data", "meta")
+        self.last_specs: Dict[str, object] = {}
+        # ppermute plans rotate the ring of ranks: nodes 1:1 with ranks
+        self._ppermute_ok = (self.mesh is not None and
+                             self.mesh.world == self.n_nodes)
         # running per-(role, q) budget floor: a steady workload converges
         # to one spec instead of re-planning per batch
         self._spec_floor: Dict[Tuple[str, int], np.ndarray] = {}
@@ -201,7 +279,30 @@ class BBClient:
         self._writer: Dict[int, int] = {}
         if telemetry:
             from repro_torch.core.adapt.telemetry import ScopeTelemetry
-            self.telemetry = ScopeTelemetry(self.policy, device=self.device)
+            reduce = None
+            if self.mesh is not None:
+                from repro_torch.core.mesh_engine import \
+                    build_telemetry_reduce
+                reduce = build_telemetry_reduce(self.mesh)
+            self.telemetry = ScopeTelemetry(
+                self.policy, per_node=0 if self.mesh is None else n_rows,
+                device=self.device, reduce=reduce)
+
+    # ---- mesh: this rank's rows and global values ---------------------------
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global request array (itself, stacked)."""
+        return x if self.mesh is None else self.mesh.shard(x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global array of a per-rank result (itself, stacked)."""
+        return x if self.mesh is None else self.mesh.gather(x)
+
+    def _global_sum(self, x: torch.Tensor) -> float:
+        """Sum over every node of a per-rank tensor, on the host."""
+        if self.mesh is None:
+            return float(x.sum().item())
+        from repro_torch.core.mesh_engine import mesh_global_sum
+        return float(mesh_global_sum(x, self.mesh).item())
 
     # ---- request construction ----------------------------------------------
     def _path_codes_uncached(self, path: str) -> Tuple[int, int]:
@@ -331,9 +432,11 @@ class BBClient:
                 hint = hint.pin_memory().to(self.device, non_blocking=True)
         if kind == "write":
             self._record_writes(req, self._host_valid(req))
+        sh = None if req.scope_hash is None else self._local(req.scope_hash)
         self.telemetry.record(
-            kind, req.scope_hash, ph, cid, dest, valid,
-            words=0 if kind == "meta" else self.words, self_hint=hint,
+            kind, sh, self._local(ph), self._local(cid), self._local(dest),
+            self._local(valid), words=0 if kind == "meta" else self.words,
+            self_hint=None if hint is None else self._local(hint),
             n_nodes=self.n_nodes, capacity=self.exchange_config.capacity)
 
     def scope_files(self, scope: str) -> Dict[int, int]:
@@ -415,10 +518,12 @@ class BBClient:
                      new_mode: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """One relayout installment: move chunks old-mode → new-mode.
 
-        Thin dispatch over ``burst_buffer.migrate_rows``; drive it through
-        a ``LiveMigrator`` rather than directly.  ``path_hash``/
+        Thin dispatch over ``burst_buffer.migrate_rows`` (stacked) or
+        ``mesh_engine.build_mesh_migrate`` (mesh); drive it through a
+        ``LiveMigrator`` rather than directly.  ``path_hash``/
         ``chunk_id``/``valid`` are (N, q) array-likes, moved to the
-        client's device.  Returns (moved, found_old) masks.
+        client's device.  Returns (moved, found_old) masks (the rank's
+        rows on a mesh).
         """
         allowed = {int(m) for m in self.policy.modes_present()}
         if not {int(old_mode), int(new_mode)} <= allowed:
@@ -434,18 +539,42 @@ class BBClient:
         new = torch.full(ph.shape, int(new_mode), dtype=I32,
                          device=self.device)
         cfg = self._migrate_config()
+        op = self._migrate_op(cfg)
         with obs.activate(self.obs), \
                 obs.span("client.migrate", cat="client",
                          old_mode=int(old_mode), new_mode=int(new_mode)) as h:
-            self.state, moved, found_old = h.fence(bb.migrate_rows(
-                self.state, self.policy, ph, cid, valid, old, new,
-                config=cfg))
+            self.state, moved, found_old = h.fence(
+                op(self.state, ph, cid, valid, old, new))
         if self.obs is None:
             return moved, found_old
         m = self.obs.metrics
         m.inc("migrate_calls_total", epoch=self.epoch)
-        m.inc("migrate_moved_total", float(moved.sum().item()))
+        m.inc("migrate_moved_total", self._global_sum(moved))
         return moved, found_old
+
+    def _migrate_op(self, cfg: bb.ExchangeConfig):
+        """``(state, ph, cid, valid, old_mode, new_mode)`` → ``(state,
+        moved, found_old)`` for one config, on either backend."""
+        if self.mesh is None:
+            policy = self.policy
+            return lambda state, *a: bb.migrate_rows(state, policy, *a,
+                                                     config=cfg)
+        from repro_torch.core.mesh_engine import build_mesh_migrate
+        return build_mesh_migrate(self.mesh, self.policy, cfg)
+
+    def _ops(self, config: bb.ExchangeConfig) -> Tuple:
+        """(write, read, meta, read_loc) ops of one config."""
+        if self.mesh is None:
+            return _stacked_ops(self.policy, config)
+        from repro_torch.core.mesh_engine import build_mesh_ops
+        return build_mesh_ops(self.mesh, self.policy, config)
+
+    def _probe_op(self, config: bb.ExchangeConfig):
+        """The (found, loc)-only STAT op of one config (both backends)."""
+        if self.mesh is None:
+            return _stacked_probe(self.policy, config)
+        from repro_torch.core.mesh_engine import build_mesh_probe
+        return build_mesh_probe(self.mesh, self.policy, config)
 
     # ---- per-call exchange dispatch -----------------------------------------
     def _select_kind(self, q: int) -> str:
@@ -464,16 +593,23 @@ class BBClient:
         return torch.arange(self.n_nodes, dtype=I32,
                             device=self.device)[:, None]
 
-    def _plan_spec(self, role: str, dest, valid) -> bb.RaggedSpec:
+    def _plan_spec(self, role: str, dest, valid, row_bytes: int):
         """Measure one call's ragged spec, with convergent presizing: the
         measured budgets are maxed into a running per-(role, q) floor that
         seeds every later plan.  With telemetry on, the live extent
-        histogram picks the quantization step (``_suggest_align``)."""
+        histogram picks the quantization step (``_suggest_align``).  A
+        mesh plans a ``MeshRaggedSpec`` (padded or ppermute, picked by the
+        fabric model from ``row_bytes`` a column)."""
         key = (role, dest.shape[1])
         floor = self._spec_floor.get(key)
-        spec = bb.plan_ragged_spec(dest, valid, self.n_nodes,
-                                   align=self._suggest_align(dest.shape[1]),
-                                   floor=floor)
+        align = self._suggest_align(dest.shape[1])
+        if self.mesh is not None:
+            spec = bb.plan_mesh_ragged_spec(
+                dest, valid, self.n_nodes, align=align, row_bytes=row_bytes,
+                allow_ppermute=self._ppermute_ok, floor=floor)
+        else:
+            spec = bb.plan_ragged_spec(dest, valid, self.n_nodes,
+                                       align=align, floor=floor)
         budgets = np.asarray(spec.budgets, np.int64)
         grew = floor is None or bool((budgets > floor).any())
         if grew and self.obs is not None:
@@ -481,6 +617,7 @@ class BBClient:
             self.obs.metrics.inc("ragged_respecializations_total", role=role)
         self._spec_floor[key] = (budgets if floor is None
                                  else np.maximum(floor, budgets))
+        self.last_specs[role] = spec
         return spec
 
     #: plans between telemetry re-reads of the align hint (each re-read
@@ -522,12 +659,13 @@ class BBClient:
                 return cfg
             dest = route_data(mode, N, ph, cid, client, data_loc=data_loc)
             cfg = dataclasses.replace(
-                cfg, data_spec=self._plan_spec("data", dest, valid))
+                cfg, data_spec=self._plan_spec("data", dest, valid,
+                                               4 * (self.words + 3)))
         if op in ("write", "meta") and cfg.meta_budget is None and \
                 cfg.budget is None:
             owner = route_meta(mode, N, self.policy.n_md_servers, ph, client)
             cfg = dataclasses.replace(
-                cfg, meta_spec=self._plan_spec("meta", owner, valid))
+                cfg, meta_spec=self._plan_spec("meta", owner, valid, 4 * 8))
         if cfg.pipeline and cfg.lossless and cfg.budget is not None:
             hint = self._carry_hint(op, mode, ph, cid, valid, data_loc, q,
                                     cfg)
@@ -579,9 +717,8 @@ class BBClient:
                 obs.span("client.write", cat="client",
                          q=int(ph.shape[1])) as h:
             cfg = self._call_config("write", mode, ph, cid, valid)
-            out = h.fence(bb.forward_write(state, self.policy, ph, cid,
-                                           payload, valid, mode=mode,
-                                           config=cfg))
+            out = h.fence(self._ops(cfg)[0](state, mode, ph, cid, payload,
+                                            valid))
         if self.obs is not None:
             self._account("write", cfg, ph.shape[1], out, mode, ph, cid,
                           valid)
@@ -603,15 +740,16 @@ class BBClient:
             return self._read_two_phase(state, mode, ph, cid, valid)
         with obs.span("client.read", cat="client", q=int(q)) as h:
             cfg = self._call_config("read", mode, ph, cid, valid)
-            out = h.fence(bb.forward_read(state, self.policy, ph, cid, valid,
-                                          mode=mode, config=cfg))
+            out = h.fence(self._ops(cfg)[1](state, mode, ph, cid, valid))
         if self.obs is not None:
             self._account("read", cfg, q, None, mode, ph, cid, valid)
         return out
 
     def _read_two_phase(self, state, mode, ph, cid, valid):
         """Metadata probe → measured ragged data round: the probe is the
-        engine's own hybrid STAT, so the answers are the one-call read's."""
+        engine's own hybrid STAT, so the answers are the one-call read's.
+        On a mesh the probed locations are all-gathered: every rank plans
+        the data round from the global array."""
         shape = ph.shape
         probe_valid = valid & (mode == LayoutMode.HYBRID)
         ranks = torch.broadcast_to(self._client_ranks(), shape)
@@ -623,23 +761,18 @@ class BBClient:
             with obs.span("client.read.probe", cat="client") as h:
                 cfg_m = self._call_config("meta", mode, ph, None,
                                           probe_valid)
-                _, fm, _, loc = h.fence(bb.meta_op(
-                    state, self.policy, torch.full(shape, bb.OP_STAT,
-                                                   dtype=I32,
-                                                   device=ph.device),
-                    ph, torch.zeros(shape, dtype=I32, device=ph.device),
-                    torch.full(shape, -1, dtype=I32, device=ph.device),
-                    probe_valid, mode=mode, config=cfg_m))
+                fm, loc = h.fence(self._probe_op(cfg_m)(state, mode, ph,
+                                                        probe_valid))
             if self.obs is not None:
                 self._account("meta", cfg_m, shape[1], None, mode, ph, None,
                               probe_valid)
-            data_loc = torch.where(fm & (loc >= 0), loc, ranks)
+            data_loc = self._gather(torch.where(fm & (loc >= 0), loc,
+                                                self._local(ranks)))
         with obs.span("client.read.data", cat="client") as h:
             cfg = self._call_config("read", mode, ph, cid, valid,
                                     data_loc=data_loc)
-            out = h.fence(bb.forward_read(state, self.policy, ph, cid, valid,
-                                          mode=mode, config=cfg,
-                                          data_loc=data_loc))
+            out = h.fence(self._ops(cfg)[3](state, mode, ph, cid, valid,
+                                            data_loc))
         if self.obs is not None:
             self._account("read", cfg, shape[1], None, mode, ph, cid, valid)
         return out
@@ -650,8 +783,8 @@ class BBClient:
                 obs.span("client.meta", cat="client",
                          q=int(ph.shape[1])) as h:
             cfg = self._call_config("meta", mode, ph, None, valid)
-            out = h.fence(bb.meta_op(state, self.policy, op, ph, size, loc,
-                                     valid, mode=mode, config=cfg))
+            out = h.fence(self._ops(cfg)[2](state, mode, op, ph, size, loc,
+                                            valid))
         if self.obs is not None:
             self._account("meta", cfg, ph.shape[1], out[0], mode, ph, None,
                           valid)
@@ -691,7 +824,7 @@ class BBClient:
         m.inc("exchange_bytes_total", 4 * foot[self._FOOT_ELEMS[op]], op=op)
         if state_out is not None:
             m.set_gauge("exchange_dropped_rows",
-                        float(state_out.dropped.sum().item()))
+                        self._global_sum(state_out.dropped))
         if foot["kind"] != "compacted" or not cfg.lossless:
             return
         ranks = self._client_ranks()
@@ -736,11 +869,13 @@ class BBClient:
     def _epoch_miss(self, req: BBRequest, found: torch.Tensor
                     ) -> Optional[torch.Tensor]:
         """Migrating-scope rows the new epoch missed (None if no retry);
-        one wait for the card, and only while a scope migrates."""
+        one wait for the card, and only while a scope migrates.  ``found``
+        is this rank's rows; the miss mask is global."""
         fb = self.fallback
         if fb is None or req.scope_hash is None:
             return None
-        miss = self._valid(req) & ~found & (req.scope_hash == fb.scope_hash)
+        miss = self._valid(req) & ~self._gather(found) & \
+            (req.scope_hash == fb.scope_hash)
         return miss if bool(miss.any().item()) else None
 
     def _old_modes(self, req: BBRequest) -> torch.Tensor:
@@ -749,7 +884,8 @@ class BBClient:
                           dtype=I32, device=req.path_hash.device)
 
     def read(self, req: BBRequest) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Read a batch of chunks → (payload (N, q, w), found (N, q)).
+        """Read a batch of chunks → (payload (L, q, w), found (L, q)): every
+        node's rows stacked, the rank's rows on a mesh.
 
         During a live relayout (``fallback`` armed), misses of the
         migrating scope are re-issued under the old mode — a chunk the

@@ -10,7 +10,7 @@ all_to_all timings (``BENCH_pr5.json`` …), which together fit a decision
 stump on the modeled dense-excess wire time.  So ``auto`` picks the plane
 the reference picks, on any machine.  Both planes are exact, so a pick
 costs time, never correctness; a crossover measured on the card is not
-here yet (ROADMAP Queue 1 item 3).
+here yet (ROADMAP Queue 1 item 2).
 
 Each load and pick emits an audit record (``record_decision``) as the
 reference's does: ``crossover_load`` / ``crossover_fallback``,
@@ -214,6 +214,38 @@ def collective_us(nbytes: int, model: Optional[Tuple] = None) -> float:
     model = model if model is not None else fabric_model()
     a, bw = model[0], model[1]
     return a + nbytes / max(bw, 1e-9)
+
+
+def pick_mesh_executor(n_nodes: int, padded_bytes: int,
+                       round_bytes: Sequence[int],
+                       model: Optional[Tuple] = None) -> str:
+    """"padded" or "ppermute" for one measured mesh-ragged plan.
+
+    ``padded_bytes`` is the padded ``all_to_all``'s payload a row
+    (N · bmax · row bytes); ``round_bytes`` the nonzero off-diagonal shift
+    rounds' widths in bytes (round 0 stays local).  Under the fabric model
+    the padded plan is one collective and the ppermute plan one a round,
+    so the segmented plan wins when its saved bytes beat the extra
+    per-collective overheads: a skewed histogram.  Every pick emits a
+    ``mesh_executor`` audit record with both modeled costs.
+    """
+    model = model if model is not None else fabric_model()
+    padded_us = collective_us(padded_bytes, model)
+    permute_us = sum(collective_us(b, model) for b in round_bytes)
+    choice = "ppermute" if permute_us < padded_us else "padded"
+    costs = {"padded": padded_us, "ppermute": permute_us}
+    measured = bool(model[2]) if len(model) > 2 else None
+    record_decision(
+        "mesh_executor", choice,
+        inputs={"n_nodes": int(n_nodes), "padded_bytes": int(padded_bytes),
+                "n_rounds": len(round_bytes),
+                "round_bytes_total": int(sum(round_bytes)),
+                "chosen_us": costs[choice]},
+        alternatives={k: v for k, v in costs.items() if k != choice},
+        evidence={"grade": "measured" if measured else "analytic",
+                  "source": ("fabric_model" if measured is not None
+                             else "explicit-model")})
+    return choice
 
 
 def auto_accuracy(table) -> Optional[float]:

@@ -647,17 +647,22 @@ def mixed_stream(client, raw_request, seed=11, n=8, w=8):
     return client
 
 
-def interleaved_stream(relayout, new_mode=3, device="cpu"):
+def interleaved_stream(relayout, new_mode=3, device="cpu",
+                       backend="stacked", exchange="auto"):
     """``tests/test_adapt.py::_interleaved_stream`` through the port on
-    ``device``: returns (client, observables)."""
+    ``device`` (or on a ``NodeMesh`` ``backend``, whose device it takes,
+    the observables gathered from every rank), under ``exchange``:
+    returns (client, observables)."""
     from repro_torch.core.adapt import LiveMigrator
     from repro_torch.core.client import BBClient, BBRequest
     from repro_torch.core.policy import LayoutPolicy
     n, q, w = 8, 6, 8
+    mesh = None if backend == "stacked" else backend
     client = BBClient(LayoutPolicy.from_scopes({ADAPT_SCOPE: 1}, n_nodes=n,
-                                               default=3),
-                      device=device, cap=256, words=w, mcap=256,
-                      telemetry=True)
+                                               default=3), backend,
+                      device=device if mesh is None else None, cap=256,
+                      words=w, mcap=256, telemetry=True, exchange=exchange)
+    glob = (lambda x: x) if mesh is None else mesh.gather
     rng = np.random.RandomState(7)
     outs, reqs = [], []
     for _ in range(3):
@@ -681,7 +686,7 @@ def interleaved_stream(relayout, new_mode=3, device="cpu"):
             path_hash=base.path_hash[perm], chunk_id=base.chunk_id[perm],
             scope_hash=base.scope_hash[perm]))
         fnd, size, _ = client.stat(base)
-        outs += [out, found, fnd, size]
+        outs += [glob(x) for x in (out, found, fnd, size)]
         if mig is not None and not mig.done:
             mig.step()
             if mig.done:

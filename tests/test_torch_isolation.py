@@ -46,7 +46,10 @@ def test_importing_the_port_loads_no_jax_module():
             __import__(m)
         import repro_torch.core.adapt, repro_torch.core.obs
         import repro_torch.core.intent, repro_torch.core.intent.staticlib
-        import repro_torch.launch.train
+        import repro_torch.launch.train, repro_torch.launch.dryrun
+        import repro_torch.core.mesh_engine
+        import repro_torch.examples.quickstart
+        import repro_torch.examples.proteus_layout_demo
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib")
                      or m == "repro" or m.startswith("repro."))
@@ -56,6 +59,11 @@ def test_importing_the_port_loads_no_jax_module():
         assert "repro_torch.core.intent.selector" in sys.modules
         assert "repro_torch.core.intent.staticlib.analyzer" in sys.modules
         assert "repro_torch.core.workloads" in sys.modules
+        assert "repro_torch.core.mesh_engine" in sys.modules
+        assert "repro_torch.launch.dryrun" in sys.modules
+        assert "repro_torch.examples.proteus_layout_demo" in sys.modules
+        import torch.distributed as dist
+        assert not dist.is_initialized(), "a process group at import time"
         from repro_torch import kernels
         assert not kernels._LIBS, "a kernel was built at import time"
         print("ok", len({mods!r}))
