@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one card: the burst-buffer data
-plane, then fault-tolerant training of gemma3-1b with Proteus checkpoints.
+plane, fault-tolerant training of gemma3-1b with Proteus checkpoints, then
+serving the dense configs.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which must succeed or the run fails without a result line:
@@ -178,7 +179,31 @@ Phases, each of which must succeed or the run fails without a result line:
       plain version and the 251 per-leaf ``fletcher`` results, its time
       against its bound beside the per-leaf launches'; the routing's time
       and host time per save; the train step's time, tokens/s and a
-      profile of one step.
+      profile of one step;
+  (j) serving (the training state freed first), under the reference's
+      serving dtypes (``serving_config``: bf16 params, bf16 activations):
+      gemma3-1b at full width, 16 prompt + 32 greedy tokens at B 4 through
+      ``make_serve_step`` (step time, tokens/s, launches, syncs, device
+      busy time and idle share of one step), then teacher forcing over
+      those 48 tokens (all below the 512 window): the logits of the full
+      forward (``make_prefill_step``'s) against 48 decode steps, reported
+      at the model's own init and checked at the per-layer fan-in
+      (``condition``): with float32 activations within ``TF_TOL32`` of the
+      largest logit, in bf16 the decode within ``BF16_RATIO`` times the
+      prefill's distance of the float32 logits, greedy tokens equal on
+      decided rows; the blocked prefill forms against
+      ``masked_attention`` at S 2048; decode_32k (cache 32,768, B 128 cut
+      to 32) and long_500k (cache 524,288, B 1): a cache filled from the
+      seed, one serve step's time, profile and bytes bound, and
+      ``decode_attention`` of a global and a local layer against float64;
+      prefill_32k (B 32 cut to 4): finite last logits, time beside the
+      operations bound; gemma-7b and minitron-8b at full width (one after
+      the other): teacher forcing over 1 x 64 tokens and 8 decode steps at
+      B 8 against the weights' bytes bound; then
+      ``repro_torch.launch.serve.main`` and the ``serve_lm`` example on
+      the card; no kernel of the port launches on this path (the
+      reference's serve path reaches no Pallas kernel either); the peak
+      device memory of each part, and one ``{"serve": ...}`` JSON line.
 
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -3597,6 +3622,513 @@ def phase_step_times(seed: int, train: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# (j) serving: KV cache, decode and prefill steps, the serve command lines
+# ---------------------------------------------------------------------------
+# gemma3-1b at full width under the reference's serving dtypes (bf16 params,
+# bf16 activations): teacher forcing and greedy generation at B 4, 16 + 32
+# tokens (all below the 512 window); the decode cells, name → (cache length,
+# batch), decode_32k's batch 128 cut to 32 (its cache alone is 26 GiB at
+# 32); prefill_32k at batch 4 of 32 (the blocked forms' float32 tiles and
+# the MLP's activations at 32 x 32,768 tokens would not fit); the blocked
+# forms against the masked one at S 2048; gemma-7b and minitron-8b at full
+# width, teacher forcing over 1 x 64 tokens and 8 decode steps at B 8.
+SERVE_ARCH = "gemma3-1b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+DECODE_CELLS = {"decode_32k": (32768, 32), "long_500k": (524288, 1)}
+PREFILL_CELL = ("prefill_32k", 32768, 4)
+BLOCKED_SEQ = 2048
+BIG_ARCHS = {"gemma-7b": 8_537_680_896, "minitron-8b": 7_734_562_816}
+BIG_TOKENS, BIG_BATCH, BIG_STEPS = 64, 8, 8
+# teacher forcing: with float32 activations (on the same bf16 params)
+# decode and prefill logits agree within TF_TOL32 of the largest logit (a
+# wrong position, slot or mask moves them by O(1); bf16 activations alone
+# move them by ~3e-2 of it on the card); as served, in bf16, the decode's
+# logits are within BF16_RATIO times the prefill's own distance of the
+# float32 prefill's (each side rounds to bf16 after every op, in its own
+# order of summation)
+TF_TOL32 = 1e-3
+BF16_RATIO = 2.0
+SERVE_ARGS = ["--arch", SERVE_ARCH]
+
+
+def serving_model(name: str, seed: int):
+    """``name`` at full width under the reference's ``serving_config``
+    (``launch/specs.py``: bf16 params), its params drawn on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config(name), param_dtype="bfloat16")
+    model = build_model(cfg)
+    return cfg, model, model.init(seed, DEVICE)
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models.param import iter_leaves
+    return sum(t.numel() * t.element_size() for _, t in iter_leaves(tree))
+
+
+def matmul_weights(cfg, params: dict):
+    """(elements, bytes) of the weights a token's matrix products read:
+    the layers' and the unembedding's (the embedding table itself when
+    tied; untied, a lookup reads one row a token)."""
+    head = params["embed"]["embedding" if cfg.tie_embeddings else "lm_head"]
+    n = head.numel() + sum(t.numel() for t in _stack_leaves(params))
+    return n, tree_bytes(params["stack"]) + head.numel() * head.element_size()
+
+
+def _stack_leaves(params: dict):
+    from repro_torch.models.param import iter_leaves
+    return [t for _, t in iter_leaves(params["stack"]) if t.ndim >= 3]
+
+
+def condition(params: dict) -> None:
+    """Rescale every stacked matrix in place from the stacked axis' fan-in
+    to its per-layer fan-in, as the CPU tests do (ROADMAP Queue 3b: the
+    reference init, which the port copies, draws them at the layer count's
+    fan-in, and at full width gemma3's scores reach ~1.4e4, where one bf16
+    ulp of q moves a score by more than the lead of the top key on some
+    rows)."""
+    from repro_torch.models.param import iter_leaves
+    for _, leaf in iter_leaves(params["stack"]):
+        if leaf.ndim >= 3:
+            leaf.mul_(math.sqrt(leaf.shape[0] / leaf.shape[1]))
+
+
+def tf_logits(model, params: dict, tokens: torch.Tensor):
+    """Float32 copies of the logits of every position of ``tokens`` (B, S)
+    by the full forward (``make_prefill_step``'s) and by S decode steps
+    from a zero cache fed the same tokens, in the model's activation
+    dtype."""
+    B, S = tokens.shape
+    with torch.no_grad():
+        pre = model.forward(params, {"tokens": tokens})[0].float()
+    cache = model.init_cache(B, S, dtype=model.cfg.dtype, device=DEVICE)
+    dec = torch.empty_like(pre)
+    for i in range(S):
+        lg, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
+                                      i + 1)
+        dec[:, i] = lg[:, 0].float()
+    return pre, dec
+
+
+def teacher_forcing(cfg, params: dict, tokens: torch.Tensor,
+                    served_only: bool = False) -> dict:
+    """Decode against prefill over ``tokens``: as served (bf16
+    activations) and, unless ``served_only``, with float32 activations on
+    the same bf16 params.  Decided rows: the float32 prefill's top-2
+    margin is at least twice the larger bf16 error, so that no such error
+    can flip their greedy token."""
+    from repro_torch.models.registry import build_model
+    pre, dec = tf_logits(build_model(cfg), params, tokens)
+    out = dict(rows=tokens.numel(), served=max_abs_err(dec, pre),
+               max_logit=float(pre.abs().max()),
+               tokens_agree=int((dec.argmax(-1) == pre.argmax(-1)).sum()),
+               finite=bool(torch.isfinite(pre).all() and
+                           torch.isfinite(dec).all()))
+    if served_only:
+        out["greedy"] = dec.argmax(-1)
+        return out
+    pre32, dec32 = tf_logits(
+        build_model(dataclasses.replace(cfg, dtype="float32")), params,
+        tokens)
+    out.update(f32=max_abs_err(dec32, pre32), max_logit=float(
+        pre32.abs().max()), dec_vs_f32=max_abs_err(dec, pre32),
+        pre_vs_f32=max_abs_err(pre, pre32),
+        finite=out["finite"] and bool(torch.isfinite(pre32).all() and
+                                      torch.isfinite(dec32).all()))
+    top2 = pre32.topk(2, dim=-1).values
+    decided = top2[..., 0] - top2[..., 1] >= \
+        2 * max(out["dec_vs_f32"], out["pre_vs_f32"])
+    want = pre32.argmax(-1)[decided]
+    out.update(decided=int(decided.sum()), decided_agree=int(
+        ((dec.argmax(-1)[decided] == want) &
+         (pre.argmax(-1)[decided] == want)).sum()))
+    return out
+
+
+def check_teacher_forcing(name: str, tf: dict) -> None:
+    """The float32 decode within TF_TOL32 of the float32 prefill (of the
+    largest logit); the served bf16 decode within BF16_RATIO times the
+    bf16 prefill's distance of the float32 prefill; both bf16 sides'
+    greedy tokens equal the float32 prefill's on decided rows."""
+    log(f"[serve] {name} teacher forcing over {tf['rows']} positions: "
+        f"float32 activations: max |decode - prefill| {tf['f32']:.3e} "
+        f"({tf['f32'] / tf['max_logit']:.2e} of max |logit| "
+        f"{tf['max_logit']:.4f}); bf16 (served): decode {tf['dec_vs_f32']:.5f}"
+        f" and prefill {tf['pre_vs_f32']:.5f} from the float32 prefill, "
+        f"{tf['served']:.5f} apart; greedy tokens: bf16 decode = bf16 "
+        f"prefill on {tf['tokens_agree']} rows, both = float32 on "
+        f"{tf['decided_agree']} of {tf['decided']} decided rows")
+    check(tf["finite"], f"{name}: non-finite logits")
+    check(tf["f32"] <= TF_TOL32 * tf["max_logit"],
+          f"{name}: float32 decode and prefill logits differ by {tf['f32']}")
+    check(tf["dec_vs_f32"] <= BF16_RATIO * tf["pre_vs_f32"],
+          f"{name}: bf16 decode is {tf['dec_vs_f32']} from the float32 "
+          f"logits, bf16 prefill {tf['pre_vs_f32']}")
+    check(tf["decided_agree"] == tf["decided"],
+          f"{name}: greedy tokens differ on decided rows")
+
+
+def decode_attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cache_len: int, window: int, scale: float,
+                         groups: int) -> torch.Tensor:
+    """One-token attention against a (B, S, KV, D) cache in float64: the
+    ``window`` positions ending at ``cache_len`` (every position below it
+    without a window), query head h on kv head h // groups."""
+    B, _, KV, D = k.shape
+    lo = max(cache_len - window, 0) if window else 0
+    k, v = k[:, lo:cache_len].double(), v[:, lo:cache_len].double()
+    qg = q.double().view(B, 1, KV, groups, D)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k) * scale
+    o = torch.einsum("bkgqt,btkd->bqkgd", torch.softmax(s, dim=-1), v)
+    return o.reshape(B, 1, KV * groups, D)
+
+
+def layer_windows(cfg):
+    """Each layer's window (0: a full layer), in stack order."""
+    from repro_torch.models.transformer import _window, layer_kind_list
+    return [_window(cfg, kind) for kind in layer_kind_list(cfg)]
+
+
+def decode_bound(cfg, params: dict, B: int, S: int):
+    """Least time of one decode step at cache length S: every weight and
+    every cache position a layer attends to read once (a local layer reads
+    its window), the new k/v and the logits written once; operations: the
+    weights' multiply-adds at the bf16 tensor peak, the attention's in
+    float32 at the SIMT peak."""
+    kv = cfg.num_kv_heads * cfg.head_dim * 2             # bf16 k and v a token
+    seen = [min(w, S) if w else S for w in layer_windows(cfg)]
+    n_mm, w_bytes = matmul_weights(cfg, params)
+    nbytes = (w_bytes + B * sum(seen) * 2 * kv
+              + cfg.num_layers * B * 2 * kv + B * cfg.padded_vocab * 2)
+    mm = 2.0 * B * n_mm
+    attn = 4.0 * B * cfg.num_heads * cfg.head_dim * sum(seen)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (mm / BF16_TENSOR_OPS_PER_S + attn / SIMPLE_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes)
+
+
+def prefill_bound(cfg, params: dict, B: int, S: int):
+    """Least time of the prefill step: the matrices' multiply-adds over
+    every token (the unembedding over the last one only) at the bf16 tensor
+    peak, and the attention's over the (query, key) pairs its masks keep
+    in float32 at the SIMT peak; bytes: weights, tokens, logits once."""
+    n_mm, w_bytes = matmul_weights(cfg, params)
+    emb = cfg.padded_vocab * cfg.d_model
+    mm = 2.0 * B * S * (n_mm - emb) + 2.0 * B * emb
+    attn = 0.0
+    for w in layer_windows(cfg):
+        pairs = S * (S + 1) // 2 if not w or w >= S else \
+            (w + 1) * S - w * (w + 1) // 2
+        attn += 4.0 * B * cfg.num_heads * cfg.head_dim * pairs
+    t_ops = (mm / BF16_TENSOR_OPS_PER_S + attn / SIMPLE_OPS_PER_S) * 1e3
+    t_bytes = (w_bytes + B * S * 4 + B * cfg.padded_vocab * 2) \
+        / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), mm + attn
+
+
+def fill_cache(cache: dict, seed: int) -> None:
+    """Every cache leaf filled in place with normal values from the seed."""
+    from repro_torch.models.param import iter_leaves
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    for _, leaf in iter_leaves(cache):
+        leaf.normal_(generator=gen)
+
+
+def layer_cache(cfg, cache: dict, layer: int) -> dict:
+    from repro_torch.models.transformer import _layer_slice, segments
+    first = 0
+    for i, (kind, n) in enumerate(segments(cfg)):
+        if first <= layer < first + n:
+            return _layer_slice(cache[f"seg{i}_{kind}"], layer - first)
+        first += n
+    raise IndexError(layer)
+
+
+def decode_cell(cfg, model, params: dict, name: str, S: int, B: int,
+                seed: int) -> dict:
+    """One serve step against a full cache of length S from the seed: its
+    time beside its bound, a profile, and ``decode_attention`` of one
+    global and one local layer against float64."""
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.train.train_step import make_serve_step
+    serve = make_serve_step(model)
+    cache = model.init_cache(B, S, device=DEVICE)
+    fill_cache(cache, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    nxt, _ = serve(params, cache, tok, S)
+    check(nxt.shape == (B,) and bool(((0 <= nxt) &
+                                      (nxt < cfg.padded_vocab)).all()),
+          f"{name}: greedy tokens out of range")
+    step_ms = host_ms(lambda: serve(params, cache, tok, S), 3)
+    prof = profile_call(f"serve step {name} (B {B}, cache {S})",
+                        lambda: serve(params, cache, tok, S))
+    bound, by, nbytes = decode_bound(cfg, params, B, S)
+    errs = {}
+    G = cfg.num_heads // cfg.num_kv_heads
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    windows = layer_windows(cfg)
+    for kind, layer in (("global", windows.index(0)),
+                        ("local", windows.index(cfg.window_size))):
+        c = layer_cache(cfg, cache, layer)
+        q = torch.randn((B, 1, cfg.num_heads, cfg.head_dim), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        got = decode_attention(q, c["k"], c["v"], S, window=windows[layer],
+                               scale=scale, groups=G)
+        want = decode_attention_f64(q, c["k"], c["v"], S, windows[layer],
+                                    scale, G)
+        errs[kind] = max_abs_err(got, want)
+        check(errs[kind] <= ATTN_TOL[torch.bfloat16],
+              f"{name}: decode_attention of layer {layer} ({kind}) is "
+              f"{errs[kind]} from float64")
+    cache_gib = tree_bytes(cache) / 2 ** 30
+    del cache
+    log(f"[serve] {name}: B {B}, cache {S} ({cache_gib:.2f} GiB bf16); "
+        f"step {step_ms:.3f} ms (host clock, best of 3), device busy "
+        f"{prof['busy_ms']:.3f} ms; bound {bound:.4f} ms ({by}, "
+        f"{nbytes / 1e9:.3f} GB), {bound / prof['busy_ms']:.3f} of it busy; "
+        f"decode_attention vs float64: global {errs['global']:.2e}, local "
+        f"{errs['local']:.2e}")
+    return dict(batch=B, cache_len=S, cache_gib=cache_gib, step_ms=step_ms,
+                busy_ms=prof["busy_ms"], idle=prof["idle"],
+                launches=prof["launches"], syncs=prof["syncs"],
+                bound_ms=bound, bound_by=by, bound_bytes=nbytes,
+                attn_err=errs, tokens_per_s=B / step_ms * 1e3)
+
+
+def blocked_vs_masked(seed: int) -> dict:
+    """The blocked prefill forms against ``masked_attention`` on the card
+    at S 2048, gemma3's heads, unit-normal bf16 q/k/v, on every element."""
+    from repro_torch.models.attention import (masked_attention,
+                                              online_softmax_attention,
+                                              windowed_attention)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+    q, k, v = (torch.randn((2, BLOCKED_SEQ, 4, 256), generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+               for _ in range(3))
+    scale = 1.0 / 16
+    err = {"online_softmax": max_abs_err(
+        online_softmax_attention(q, k, v, causal=True, scale=scale),
+        masked_attention(q, k, v, window=0, scale=scale)),
+        "windowed": max_abs_err(
+        windowed_attention(q, k, v, window=512, scale=scale),
+        masked_attention(q, k, v, window=512, scale=scale))}
+    for name, e in err.items():
+        check(e <= ATTN_TOL[torch.bfloat16],
+              f"{name} differs from masked_attention by {e}")
+    log(f"[serve] blocked forms vs masked_attention at S {BLOCKED_SEQ} "
+        f"(B 2, H 4, D 256, bf16): online softmax {err['online_softmax']}, "
+        f"windowed (512) {err['windowed']}")
+    return err
+
+
+def prefill_cell(cfg, model, params: dict, seed: int) -> dict:
+    from repro_torch.train.train_step import make_prefill_step
+    name, S, B = PREFILL_CELL
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=DEVICE,
+                                     dtype=torch.int32)}
+    prefill = make_prefill_step(model)
+    last = prefill(params, batch)
+    check(last.shape == (B, cfg.padded_vocab) and
+          bool(torch.isfinite(last).all()),
+          f"{name}: last logits {tuple(last.shape)} not finite")
+    ms = host_ms(lambda: prefill(params, batch), 1)
+    bound, by, flops = prefill_bound(cfg, params, B, S)
+    log(f"[serve] {name}: B {B} x {S} tokens, finite last logits; "
+        f"{ms:.1f} ms (host clock, the second call), "
+        f"{B * S / ms * 1e3:.0f} "
+        f"tokens/s; bound {bound:.3f} ms ({by}: {flops / 1e12:.2f} TFLOP, "
+        f"matrices at the bf16 tensor peak, attention in float32 at the "
+        f"SIMT peak), {bound / ms:.3f} of it")
+    return dict(batch=B, seq=S, ms=ms, bound_ms=bound, bound_by=by,
+                flops=flops, tokens_per_s=B * S / ms * 1e3)
+
+
+def greedy_generation(cfg, model, params: dict, seed: int):
+    """SERVE_PROMPT prompt tokens from the seed fed through the serve step,
+    then SERVE_GEN greedy tokens; the step's time and profile."""
+    from repro_torch.train.train_step import make_serve_step
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    serve = make_serve_step(model)
+    cache = model.init_cache(B, P + G, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 4)
+    prompt = torch.randint(1, cfg.vocab_size, (B, P), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    tok, out = prompt[:, :1], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(P + G - 1):
+        nxt, cache = serve(params, cache, tok, i + 1)
+        if i + 1 < P:
+            tok = prompt[:, i + 1:i + 2]
+        else:
+            tok = nxt[:, None]
+            out.append(nxt)
+    tokens = torch.cat([prompt, torch.stack(out, 1)], dim=1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    step_ms = host_ms(lambda: serve(params, cache, tok, P + G), 5)
+    prof = profile_call(f"serve step {cfg.name} (B {B}, cache {P + G})",
+                        lambda: serve(params, cache, tok, P + G))
+    bound, by, _ = decode_bound(cfg, params, B, P + G)
+    log(f"[serve] {cfg.name} greedy: {P} prompt + {G} tokens x batch {B} "
+        f"in {wall:.1f} ms ({B * G / wall * 1e3:.1f} generated tokens/s); "
+        f"one step {step_ms:.3f} ms (best of 5), {B / step_ms * 1e3:.1f} "
+        f"tokens/s, bound {bound:.4f} ms ({by})")
+    return tokens, dict(wall_ms=wall, step_ms=step_ms,
+                        tokens_per_s=B / step_ms * 1e3,
+                        busy_ms=prof["busy_ms"],
+                        idle=prof["idle"], launches=prof["launches"],
+                        syncs=prof["syncs"], htod=prof["htod"],
+                        dtoh=prof["dtoh"], bound_ms=bound, bound_by=by)
+
+
+def big_model(name: str, n_params: int, seed: int) -> dict:
+    """A dense config at full width: teacher forcing over 1 x BIG_TOKENS
+    tokens, then BIG_STEPS decode steps at batch BIG_BATCH."""
+    from repro_torch.train.train_step import make_serve_step
+    cfg, model, params = serving_model(name, seed)
+    n = model.param_count()
+    check(n == n_params, f"{name} has {n} params")
+    condition(params)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 6)
+    tokens = torch.randint(0, cfg.vocab_size, (1, BIG_TOKENS), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    tf = teacher_forcing(cfg, params, tokens)
+    check_teacher_forcing(name, tf)
+    serve = make_serve_step(model)
+    cache = model.init_cache(BIG_BATCH, BIG_STEPS, device=DEVICE)
+    tok = tokens[:, :1].expand(BIG_BATCH, 1).contiguous()
+    steps = []
+    for i in range(BIG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, cache = serve(params, cache, tok, i + 1)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        tok = nxt[:, None]
+    prof = profile_call(f"serve step {name} (B {BIG_BATCH}, cache "
+                        f"{BIG_STEPS})",
+                        lambda: serve(params, cache, tok, BIG_STEPS))
+    bound, by, nbytes = decode_bound(cfg, params, BIG_BATCH, BIG_STEPS)
+    out = dict(params=n, param_gb=tree_bytes(params) / 1e9, tf=tf,
+               steps_ms=steps, step_ms=median(steps[1:]), bound_ms=bound,
+               bound_by=by, busy_ms=prof["busy_ms"], idle=prof["idle"],
+               launches=prof["launches"], syncs=prof["syncs"])
+    log(f"[serve] {name}: {n:,} params ({out['param_gb']:.2f} GB bf16), "
+        f"{BIG_STEPS} decode steps at B {BIG_BATCH}: median "
+        f"{out['step_ms']:.3f} ms after the first ({steps[0]:.1f} ms), "
+        f"bound {bound:.4f} ms ({by}, {nbytes / 1e9:.2f} GB), "
+        f"{bound / out['step_ms']:.3f} of it")
+    return out
+
+
+def run_serve_entry_points() -> dict:
+    """``repro_torch.launch.serve.main`` and the ``serve_lm`` example on
+    the card (their default device), in this process: their two lines in
+    the reference's format and the token arrays they return."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve
+    argv = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    out = {}
+    for name, main, args, shape, first, second in (
+            ("launch.serve", serve.main, SERVE_ARGS + argv, (4, 32),
+             "[serve] generated (4, 32) in ",
+             lambda g: f"[serve] sample: {g[0][:16].tolist()}"),
+            ("serve_lm", serve_lm.main, argv, (4, 24),
+             f"[serve] {SERVE_ARCH}: generated 24 tokens × batch 4 in ",
+             lambda g: f"[serve] first sequence: {g[0].tolist()}")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            gen = main(args)
+        ms = (time.perf_counter() - t0) * 1e3
+        lines = buf.getvalue().splitlines()
+        check(gen.shape == shape and len(lines) == 2 and
+              lines[0].startswith(first) and lines[1] == second(gen),
+              f"{name} printed {lines} for tokens of shape {gen.shape}")
+        for line in lines:
+            log(f"[serve] {name} on the card: {line}")
+        out[name] = ms
+    return out
+
+
+def phase_serve(seed: int, counters) -> dict:
+    """Phase j (module docstring).  ``counters``: every kernel wrapper's
+    launch count, none of which the serving path may move (the reference's
+    serve path reaches no Pallas kernel, the port's none of its kernels)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    before = {c.name: c.launches for c in counters}
+    peaks = {}
+
+    def part_done(name: str) -> None:
+        """The part's peak device memory; the next part starts clean."""
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    cfg, model, params = serving_model(SERVE_ARCH, seed)
+    log(f"[serve] {SERVE_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {model.param_count():,} params "
+        f"({tree_bytes(params) / 1e9:.3f} GB: bf16 params, {cfg.dtype} "
+        f"activations)")
+    check(SERVE_PROMPT + SERVE_GEN <= cfg.window_size,
+          "teacher forcing beyond the window would meet the reference's "
+          "decode/prefill window mismatch (ROADMAP Queue 3b)")
+    tokens, out["greedy"] = greedy_generation(cfg, model, params, seed)
+    tf = out["tf_reference_init"] = teacher_forcing(cfg, params, tokens,
+                                                    served_only=True)
+    # the serve step's greedy tokens are the argmax of the decode step's
+    # logits: fed back, the same steps on the same shapes give them again
+    check(torch.equal(tf.pop("greedy")[:, SERVE_PROMPT - 1:-1].int(),
+                      tokens[:, SERVE_PROMPT:]),
+          "teacher-forced decode does not reproduce the greedy tokens")
+    log(f"[serve] {SERVE_ARCH} at the reference init (reported, not "
+        f"checked): bf16 max |decode - prefill| {tf['served']:.4f} of max "
+        f"|logit| {tf['max_logit']:.4f}; greedy tokens agree on "
+        f"{tf['tokens_agree']} of {tf['rows']} rows; the decode steps "
+        f"reproduce the {SERVE_GEN} greedy tokens")
+    condition(params)
+    out["tf"] = teacher_forcing(cfg, params, tokens)
+    check_teacher_forcing(SERVE_ARCH, out["tf"])
+    out["blocked_err"] = blocked_vs_masked(seed)
+    part_done(SERVE_ARCH)
+    for name, (S, B) in DECODE_CELLS.items():
+        out[name] = decode_cell(cfg, model, params, name, S, B, seed)
+        part_done(name)
+    out[PREFILL_CELL[0]] = prefill_cell(cfg, model, params, seed)
+    del params, model
+    part_done(PREFILL_CELL[0])
+    for name, n_params in BIG_ARCHS.items():
+        out[name] = big_model(name, n_params, seed)
+        part_done(name)
+    out["entry_points_ms"] = run_serve_entry_points()
+    part_done("entry points")
+    moved = {c.name: c.launches - before[c.name] for c in counters
+             if c.launches != before[c.name]}
+    check(not moved, f"kernels launched on the serving path: {moved}")
+    out["peak_gib"] = peaks
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[serve] phase j: peak device memory by part (GiB) "
+        f"{ {k: round(v, 2) for k, v in peaks.items()} }, wall "
+        f"{out['wall_s']:.3f} s; no kernel of the port launched")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3684,6 +4216,12 @@ def main() -> int:
                                         times["fletcher_segmented"]["err"])
         phase = "step times"
         times["step"] = phase_step_times(args.seed, train)
+        del train
+        phase = "serve"
+        serve = phase_serve(args.seed, counters + ckpt_counters + (
+            DEST_HISTOGRAM2D, FLETCHER, FLASH_ATTENTION, FLASH_ATTENTION_F32,
+            FLASH_ATTENTION_WIDE, DEST_HISTOGRAM))
+        log(json.dumps({"serve": serve}))
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

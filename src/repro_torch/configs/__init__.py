@@ -1,12 +1,16 @@
-"""Architecture configs the port can build (one module per arch)."""
+"""Architecture configs the port can build (one module per arch) and the
+shape registry."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ModelConfig, all_configs,  # noqa: F401
-                                      register)
+from repro_torch.configs.base import (ModelConfig, ShapeConfig,  # noqa: F401
+                                      all_configs, get_config, register)
+from repro_torch.configs.shapes import (ALL_SHAPES,  # noqa: F401
+                                        applicable_shapes, shape_applicable,
+                                        skip_reason)
 
-_ARCH_MODULES = ("gemma3_1b",)
+_ARCH_MODULES = ("gemma_7b", "minitron_8b", "qwen1_5_110b", "gemma3_1b")
 
 
 def load_all() -> None:

@@ -1,10 +1,12 @@
-"""Model configurations of the port (a subset of ``repro.configs.base``).
+"""Model and shape configurations of the port (a copy of
+``repro.configs.base``).
 
-``ModelConfig`` is a copy of the JAX package's frozen dataclass, with the
-fields and the derived values the port's models read (``padded_vocab``,
-``reduced()``); ``register`` and ``all_configs`` keep a registry of the
-configurations the port can build.  Configs are pure data: models are built
-from them by ``repro_torch.models.registry.build_model``.
+``ModelConfig`` is a copy of the JAX package's frozen dataclass: its fields,
+the derived values (``padded_vocab``, the analytic ``param_count``) and
+``reduced()``; ``ShapeConfig`` names one (seq_len, global_batch) workload
+shape; ``register``, ``get_config`` and ``all_configs`` keep a registry of
+the configurations the port can build.  Configs are pure data: models are
+built from them by ``repro_torch.models.registry.build_model``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,20 @@ MODEL_AXIS_SIZE = 16  # the reference mesh's model-axis width (vocab padding)
 
 def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (seq_len, global_batch) workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode" | "long_decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind in ("decode", "long_decode")
 
 
 @dataclass(frozen=True)
@@ -104,6 +120,66 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def param_count(self) -> int:
+        """Analytic parameter count (trunk, embeddings, heads), as the
+        reference computes it: it counts four norm vectors a layer and no
+        qkv biases, so it is not the size of the parameter tree
+        (``repro_torch.models.param.count_params`` of ``describe()``)."""
+        d, L, V = self.d_model, self.num_layers, self.padded_vocab
+        emb = V * d
+        out = 0 if self.tie_embeddings else V * d
+        per_layer = self._per_layer_params()
+        enc = 0
+        if self.encoder_layers:
+            enc_attn = 4 * d * d
+            enc_mlp = 2 * d * self.d_ff
+            enc = self.encoder_layers * (enc_attn + enc_mlp + 4 * d)
+        return emb + out + L * per_layer + enc
+
+    def active_param_count(self) -> int:
+        """Active params per token (== param_count for dense)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        moe_layers = L - self.first_k_dense
+        inactive_experts = self.num_experts - self.num_experts_per_tok
+        per_expert = 3 * d * self.moe_d_ff
+        return self.param_count() - moe_layers * inactive_experts * per_expert
+
+    def _per_layer_params(self) -> int:
+        d = self.d_model
+        # attention
+        if self.use_mla:
+            qdim = self.num_heads * (self.qk_nope_head_dim +
+                                     self.qk_rope_head_dim)
+            attn = (
+                d * qdim  # q proj
+                + d * (self.kv_lora_rank + self.qk_rope_head_dim)  # kv down
+                + self.kv_lora_rank
+                * self.num_heads
+                * (self.qk_nope_head_dim + self.v_head_dim)  # kv up
+                + self.num_heads * self.v_head_dim * d  # o proj
+            )
+        else:
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        # mlp
+        gate_mult = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        if self.is_moe:
+            mlp = (
+                self.num_experts * gate_mult * d * self.moe_d_ff
+                + self.num_shared_experts * gate_mult * d * self.moe_d_ff
+                + d * self.num_experts  # router
+            )
+        elif self.family == "ssm":
+            inner = int(self.proj_factor * d)
+            mlp = 2 * d * inner + 3 * inner * inner // 4  # block projections
+        else:
+            mlp = gate_mult * d * self.d_ff
+        if self.family == "hybrid":
+            inner = self.q_dim
+            mlp += 2 * d * inner // 2 + inner * self.ssm_state * 2  # mamba
+        return attn + mlp + 4 * d  # + norms
+
     # --- reduced smoke config ---------------------------------------------
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (as the reference's)."""
@@ -165,6 +241,17 @@ _REGISTRY: dict = {}
 def register(cfg: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
     return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    """The registered configuration called ``name``."""
+    if name not in _REGISTRY:
+        from repro_torch import configs as _c
+        _c.load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown architecture {name!r}; known: "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name]
 
 
 def all_configs() -> dict:

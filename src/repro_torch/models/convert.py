@@ -48,6 +48,13 @@ def from_jax_params(tree: Dict, device=None) -> Dict:
     return map_tree(lambda a: tensor_from_numpy(a, device), tree)
 
 
+def from_jax_cache(tree: Dict, device=None) -> Dict:
+    """A JAX KV-cache tree (``{seg_name: {"k", "v"}}`` of numpy, from
+    ``TransformerLM.init_cache`` or a decode step) as the port's, on
+    ``device`` (the CUDA card unless given): the same tree, leaf for leaf."""
+    return from_jax_params(tree, device)
+
+
 def from_jax_opt_state(state: Any, device=None) -> AdamWState:
     """A JAX ``AdamWState(step, mu, nu)`` of numpy leaves as the port's, on
     ``device`` (the CUDA card unless given)."""

@@ -90,7 +90,8 @@ def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig
     if cfg.mlp_type in ("swiglu", "geglu"):
         g = x @ params["wi_gate"].to(dt)
         u = x @ params["wi_up"].to(dt)
-        act = F.silu(g) if cfg.mlp_type == "swiglu" else _gelu(g)
+        # jax.nn.silu is x * sigmoid(x), rounded after each op in bf16
+        act = g * torch.sigmoid(g) if cfg.mlp_type == "swiglu" else _gelu(g)
         return (act * u) @ params["wo"].to(dt)
     h = x @ params["wi"].to(dt)
     h = F.relu(h).square() if cfg.mlp_type == "relu2" else _gelu(h)

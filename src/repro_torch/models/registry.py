@@ -6,7 +6,8 @@ from repro_torch.configs.base import ModelConfig
 
 
 def build_model(cfg: ModelConfig):
-    """The dense decoder LM; other families are not ported yet."""
+    """The dense decoder LM, for every dense config (gemma3-1b, gemma-7b,
+    minitron-8b, qwen1.5-110b); other families are not ported yet."""
     if cfg.family == "dense":
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM(cfg)

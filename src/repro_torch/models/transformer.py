@@ -7,23 +7,27 @@ package, so checkpoint leaves match it one for one.  The reference scans a
 segment; here a Python loop runs its layers, each recomputed in the
 backward pass when ``cfg.remat`` is set (as ``jax.checkpoint`` does there).
 
-The model is functional like the reference: ``forward`` and ``loss_fn``
-take the parameter tree as an argument and never modify it, so a training
-step can be redone from the same parameters.
+The model is functional like the reference: ``forward``, ``loss_fn`` and
+``decode_step`` take the parameter tree as an argument and never modify it,
+so a training step can be redone from the same parameters.  The KV cache
+is the reference's tree, ``{seg_name: {"k", "v"}}`` of (n, B, max_len, KV,
+D); ``decode_step`` writes it in place and returns the same tree (the
+reference returns a new one).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nnl
 from repro_torch.models.param import (count_params, materialize, norm_scale,
-                                      stack_layers)
+                                      stack_layers, torch_dtype)
 
 Z_LOSS = 1e-4
 LOSS_SEQ_CHUNKS = 4
@@ -64,11 +68,15 @@ def describe_layer(cfg: ModelConfig) -> dict:
 
 
 def apply_layer(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, kind: str) -> torch.Tensor:
+                cfg: ModelConfig, kind: str, *, cache: Optional[dict] = None,
+                cache_len: Optional[int] = None) -> torch.Tensor:
+    """One layer; with ``cache`` (this layer's ``{"k", "v"}``) a decode
+    step that writes the cache in place."""
     zero_c = cfg.family == "dense" and cfg.embed_scale   # gemma
     h = nnl.rms_norm(x, params["ln_attn"], cfg.norm_eps, zero_centered=zero_c)
     x = x + attn.apply_attention(params["attn"], h, positions, cfg,
-                                 window=_window(cfg, kind))
+                                 window=_window(cfg, kind), cache=cache,
+                                 cache_len=cache_len)
     h = nnl.rms_norm(x, params["ln_mlp"], cfg.norm_eps, zero_centered=zero_c)
     return x + nnl.apply_mlp(params["mlp"], h, cfg)
 
@@ -85,12 +93,20 @@ def describe_stack(cfg: ModelConfig) -> dict:
 
 
 def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, *, caches: Optional[dict] = None,
+                cache_len: Optional[int] = None) -> torch.Tensor:
+    """Run all segments.  ``caches``: ``{seg_name: {"k", "v"}}`` stacked
+    on the layer axis, each layer's slice written in place."""
     for i, (kind, n) in enumerate(segments(cfg)):
-        seg = params[f"seg{i}_{kind}"]
+        name = f"seg{i}_{kind}"
+        seg = params[name]
         for j in range(n):
             p_j = _layer_slice(seg, j)
-            if cfg.remat and torch.is_grad_enabled():
+            if caches is not None:
+                x = apply_layer(p_j, x, positions, cfg, kind,
+                                cache=_layer_slice(caches[name], j),
+                                cache_len=cache_len)
+            elif cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(apply_layer, p_j, x, positions, cfg, kind,
                                use_reentrant=False)
             else:
@@ -144,6 +160,68 @@ class TransformerLM(nn.Module):
         logits = nnl.unembed(params["embed"], x, self.cfg)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
+
+    def last_logits(self, params: dict, batch: dict) -> torch.Tensor:
+        """``forward``'s logits at the last position only, (B, V): the
+        trunk over the whole sequence, the unembedding of one row a
+        sequence (the whole (B, S, V) logits would be 17 GiB in bf16 at
+        S 32,768 and gemma3-1b's vocab)."""
+        x = self._trunk(params, batch["tokens"])
+        return nnl.unembed(params["embed"], x[:, -1], self.cfg)
+
+    # ---- decode -----------------------------------------------------------
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
+                    cache_len: Union[int, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, dict]:
+        """tokens: (B, 1) new tokens; cache_len: the valid length, the new
+        token included — an int, or a tensor (a scalar, or one a row whose
+        first entry places the writes, as in the reference; reading a
+        tensor costs a host sync).  Returns (logits (B, 1, V), cache), the
+        cache written in place."""
+        cfg = self.cfg
+        x = nnl.embed_tokens(params["embed"], tokens, cfg)
+        if isinstance(cache_len, torch.Tensor):
+            positions = (cache_len.reshape(-1, 1) - 1).expand(tokens.shape)
+            n = int(cache_len.reshape(-1)[0])
+        else:
+            positions = torch.full(tokens.shape, cache_len - 1,
+                                   dtype=torch.int32, device=tokens.device)
+            n = cache_len
+        x = apply_stack(params["stack"], x, positions.to(torch.int32), cfg,
+                        caches=cache, cache_len=n)
+        x = nnl.rms_norm(x, params["ln_f"], cfg.norm_eps,
+                         zero_centered=cfg.embed_scale)
+        return nnl.unembed(params["embed"], x, cfg), cache
+
+    # ---- caches -----------------------------------------------------------
+    def _cache_shape(self, batch: int, max_len: int):
+        cfg = self.cfg
+        shp = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        axes = ("batch", "act_kv_seq", "kv", None)
+        return {"k": shp, "v": shp}, {"k": axes, "v": axes}
+
+    def cache_axes(self, batch: int, max_len: int) -> dict:
+        """The reference's logical axes of each cache leaf."""
+        _, axes = self._cache_shape(batch, max_len)
+        return {f"seg{i}_{kind}": {k: ("layers",) + a
+                                   for k, a in axes.items()}
+                for i, (kind, _) in enumerate(segments(self.cfg))}
+
+    def init_cache(self, batch: int, max_len: int, dtype: str = "bfloat16",
+                   device=None) -> dict:
+        """A zero cache on ``device`` (the CUDA card unless given; "meta"
+        for shapes only)."""
+        base, _ = self._cache_shape(batch, max_len)
+        dev = resolve_device(device)
+        return {f"seg{i}_{kind}": {
+            k: torch.zeros((n,) + s, dtype=torch_dtype(dtype), device=dev)
+            for k, s in base.items()}
+            for i, (kind, n) in enumerate(segments(self.cfg))}
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       dtype: str = "bfloat16") -> dict:
+        """The cache's shapes and dtypes as meta tensors (no memory)."""
+        return self.init_cache(batch, max_len, dtype, device="meta")
 
     def loss_fn(self, params: dict, batch: dict
                 ) -> Tuple[torch.Tensor, dict]:

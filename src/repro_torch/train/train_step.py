@@ -1,4 +1,5 @@
-"""The training step factory (twin of ``repro.train.train_step``)."""
+"""The step factories (twin of ``repro.train.train_step``): training, and
+the serving steps, prefill and one-token decode."""
 from __future__ import annotations
 
 from typing import Callable
@@ -56,3 +57,28 @@ def make_train_step(model, optimizer: AdamW,
 
     return train_step
 
+
+def make_prefill_step(model) -> Callable:
+    """Full-sequence forward (inference-prefill shapes): returns the
+    last-position logits (B, V), as the reference's step keeps
+    ``logits[:, -1]`` (here only that row is unembedded)."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        return model.last_logits(params, batch)
+
+    return prefill_step
+
+
+def make_serve_step(model) -> Callable:
+    """One-token decode against a KV cache (decode/long-context shapes):
+    ``serve_step(params, cache, tokens, cache_len) -> (next_tok (B,)
+    int32, cache)``, the greedy token (the first of equal maxima, as
+    ``jnp.argmax``) and the cache, written in place."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, cache_len):
+        logits, cache = model.decode_step(params, cache, tokens, cache_len)
+        return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
+
+    return serve_step

@@ -1,15 +1,19 @@
 """The port's examples (``repro_torch.examples``) print what the JAX
 package's ``examples/`` print, line for line, on the CPU: the same
-decisions, tables, simulated times and read-backs."""
+decisions, tables, simulated times and read-backs.  The serving example and
+``launch/serve.py`` print in the reference's format (their tokens come from
+the port's own seeded init, not the reference's)."""
 import contextlib
 import importlib.util
 import io
+import re
 from pathlib import Path
 
 import pytest
 import torch
 
-from repro_torch.examples import proteus_layout_demo, quickstart
+from repro_torch.examples import proteus_layout_demo, quickstart, serve_lm
+from repro_torch.launch import serve
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -67,3 +71,44 @@ def test_examples_default_to_the_card():
         _stdout(quickstart.main, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _stdout(proteus_layout_demo.heterogeneous_plan)
+
+
+def _shape_of(line: str) -> str:
+    """A printed line with every number replaced by ``N``."""
+    return re.sub(r"\d+(\.\d+)?", "N", line)
+
+
+def _reference_serve_lines(main) -> list:
+    """What a reference serving ``main`` prints; it parses ``sys.argv``,
+    which is given no arguments here."""
+    import sys
+    argv = sys.argv
+    sys.argv = ["serve"]
+    try:
+        return _stdout(main)[0]
+    finally:
+        sys.argv = argv
+
+
+def test_serve_lm_prints_in_the_reference_format():
+    ref = _reference_serve_lines(_reference("serve_lm").main)
+    got, gen = _stdout(serve_lm.main, ["--device", "cpu"])
+    assert [_shape_of(x) for x in got] == [_shape_of(x) for x in ref]
+    assert got[0].startswith("[serve] gemma3-1b: generated 24 tokens × "
+                             "batch 4 in ")
+    assert gen.shape == (4, 24) and got[1] == \
+        f"[serve] first sequence: {gen[0].tolist()}"
+
+
+def test_serve_cli_prints_in_the_reference_format():
+    """``python -m repro_torch.launch.serve`` against the reference's
+    ``repro.launch.serve``."""
+    from repro.launch import serve as j_serve
+    ref = _reference_serve_lines(j_serve.main)
+    got, gen = _stdout(serve.main, ["--device", "cpu", "--arch",
+                                    "minitron-8b"])
+    assert [_shape_of(x) for x in got] == [_shape_of(x) for x in ref]
+    assert gen.shape == (4, 32) and got[0].startswith(
+        "[serve] generated (4, 32) in ")
+    assert got[1] == f"[serve] sample: {gen[0][:16].tolist()}"
+    assert ((0 <= gen) & (gen < 256)).all()

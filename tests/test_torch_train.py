@@ -429,19 +429,28 @@ def test_other_families_raise_not_implemented():
 
 
 def test_entry_points_default_to_the_card(tmp_path):
-    """With no device given, the model init, the converters, the manager
-    and the loop put their tensors on the CUDA card, and raise without
-    one rather than fall back to the CPU."""
+    """With no device given, the model init, the converters, the manager,
+    the loop, the KV caches and the serving entry points put their tensors
+    on the CUDA card, and raise without one rather than fall back to the
+    CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the defaults would succeed")
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import from_jax_cache
     _, t = _cfgs("float32")
     calls = [lambda: build_model(t).init(0),
              lambda: from_jax_params({"w": np.zeros(2, np.float32)}),
              lambda: CheckpointManager(str(tmp_path),
                                        LayoutPolicy.uniform(1, 8)),
              lambda: run_training(build_model(t), t, 4, 16,
-                                  LoopConfig(steps=1))]
+                                  LoopConfig(steps=1)),
+             lambda: build_model(t).init_cache(1, 8),
+             lambda: t_attn.init_kv_cache(t, 1, 8),
+             lambda: from_jax_cache({"k": np.zeros(2, np.float32)}),
+             lambda: serve.main([]),
+             lambda: serve_lm.main([])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
