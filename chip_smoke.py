@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one card: the burst-buffer data
-plane, fault-tolerant training of gemma3-1b with Proteus checkpoints, then
-serving the dense configs.
+plane, fault-tolerant training of gemma3-1b with Proteus checkpoints,
+serving the dense configs, then the MoE and VLM families.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which must succeed or the run fails without a result line:
@@ -203,7 +203,37 @@ Phases, each of which must succeed or the run fails without a result line:
       ``repro_torch.launch.serve.main`` and the ``serve_lm`` example on
       the card; no kernel of the port launches on this path (the
       reference's serve path reaches no Pallas kernel either); the peak
-      device memory of each part, and one ``{"serve": ...}`` JSON line.
+      device memory of each part, and one ``{"serve": ...}`` JSON line;
+  (k) the MoE and VLM families (phase j's state freed, each model freed
+      before the next), in bf16 as phase j: deepseek-v2-lite-16b (MLA, 64
+      experts top-6 + 2 shared), moonshot-v1-16b-a3b and qwen2-vl-2b
+      (M-RoPE) at full width, their parameter trees' sizes checked; each
+      16 prompt + 32 greedy tokens at B 4 through ``make_serve_step``
+      (the default ``dropping`` dispatch) beside a bytes bound that reads
+      only the experts the step routes to; at the reference init
+      (reported) the decode steps reproduce the greedy tokens and the
+      ``dropping`` prefill's dropped copies are counted; at the per-layer
+      fan-in (``condition``) teacher forcing with the ``dense`` dispatch
+      on both sides under phase j's gates over every position (the
+      tokens whose routing flips between the runs counted by
+      ``RouterProbe`` and reported; the greedy-token check holds only on
+      the decided rows, whose count is reported); deepseek's
+      decode_32k with the MLA latent cache (B 128 cut to 32) beside its
+      bytes bound and MLA layer 1's absorbed decode against float64
+      (``o_lat`` and the layer output within 2e-2), its prefill at S 4096
+      (its dropped copies counted); qwen2-vl's prefill_32k (B 32 cut to 4)
+      with 1024 patch embeddings and their M-RoPE positions; no kernel of
+      the port launches on those paths; then ``launch/train.py --full
+      --arch qwen2-vl-2b`` (one checksum and one routing launch a save)
+      and deepseek at full width cut to two layers (dense, moe): three
+      train steps with finite loss and aux loss, one save and one restore
+      through ``CheckpointManager`` (one routing and one checksum launch a
+      save, one routing launch and a checksum launch a group of leaves a
+      restore), the restore equal to the saved state bit for bit; every
+      checkpoint kernel launch of the launcher's save and of deepseek's
+      save and restore held against its plain version on the same
+      inputs, bit for bit; the peak device memory of each part, and one
+      ``{"families": ...}`` JSON line.
 
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -2881,23 +2911,41 @@ def redecide_hot(signature: list) -> int:
     return int(d.mode)
 
 
-def launch_training(counters) -> dict:
-    """``repro_torch.launch.train.main`` in-process at full width: it
-    decides Mode 1, trains, and checkpoints every LAUNCH_CKPT_EVERY steps;
-    ``counters`` (segmented checksum and routing) launch once a save.  The
-    decision's host time is its call timed once beside the run."""
+def release_host_memory() -> None:
+    """Hand freed host memory back to the system: the page-locked blocks
+    PyTorch keeps cached (the checkpoint manager's staging buffers, freed
+    with its store; ``torch.accelerator.empty_host_cache``, before it
+    ``torch._C._host_emptyCache``) and the C heap's free pages
+    (``malloc_trim``: a store's freed 1 MiB chunks stay in it)."""
+    empty = getattr(torch.accelerator, "empty_host_cache", None) or \
+        getattr(torch._C, "_host_emptyCache", None)
+    check(empty is not None, "this torch cannot release cached pinned "
+                             "host memory")
+    empty()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+def launch_training(counters, args=LAUNCH_ARGS,
+                    n_params: int = 999_812_736,
+                    max_saves: int = LAUNCH_SAVES) -> dict:
+    """``repro_torch.launch.train.main`` in-process at full width (``args``,
+    a model of ``n_params`` params): it decides Mode 1, trains, and
+    checkpoints every LAUNCH_CKPT_EVERY steps, up to ``max_saves`` saves as
+    host RAM holds them; ``counters`` (segmented checksum and routing)
+    launch once a save.  The decision's host time is its call timed once
+    beside the run."""
     import contextlib
     import io
     from repro_torch.core.intent.selector import select_layout
     from repro_torch.core.workloads import workload_by_name
     from repro_torch.launch import train as launcher
-    save_gib = 12 * 999_812_736 / 2 ** 30
+    save_gib = 12 * n_params / 2 ** 30
     avail = mem_available_gib()
-    saves = min(LAUNCH_SAVES, int((avail - LAUNCH_RESERVE_GIB) // save_gib))
+    saves = min(max_saves, int((avail - LAUNCH_RESERVE_GIB) // save_gib))
     check(saves >= 1, f"host MemAvailable {avail:.1f} GiB holds no save")
     steps = saves * LAUNCH_CKPT_EVERY
-    argv = LAUNCH_ARGS + ["--steps", str(steps), "--ckpt-every",
-                          str(LAUNCH_CKPT_EVERY)]
+    argv = list(args) + ["--steps", str(steps), "--ckpt-every",
+                         str(LAUNCH_CKPT_EVERY)]
     t1 = time.perf_counter()
     select_layout(workload_by_name("IOR-A"))
     decide_ms = (time.perf_counter() - t1) * 1e3
@@ -3686,28 +3734,38 @@ def condition(params: dict) -> None:
     reference init, which the port copies, draws them at the layer count's
     fan-in, and at full width gemma3's scores reach ~1.4e4, where one bf16
     ulp of q moves a score by more than the lead of the top key on some
-    rows)."""
+    rows): ``shape[1]``, an expert leaf (L, E, d_in, d_out) its
+    ``shape[2]``; the MoE router keeps its std of 0.02
+    (``tests/_model_families.py``)."""
     from repro_torch.models.param import iter_leaves
-    for _, leaf in iter_leaves(params["stack"]):
-        if leaf.ndim >= 3:
-            leaf.mul_(math.sqrt(leaf.shape[0] / leaf.shape[1]))
+    for path, leaf in iter_leaves(params["stack"]):
+        if leaf.ndim >= 3 and path[-1] != "router":
+            fan = leaf.shape[2] if "moe" in path and leaf.ndim == 4 else \
+                leaf.shape[1]
+            leaf.mul_(math.sqrt(leaf.shape[0] / fan))
 
 
-def tf_logits(model, params: dict, tokens: torch.Tensor):
+def prefill_logits(model, params: dict, tokens: torch.Tensor):
     """Float32 copies of the logits of every position of ``tokens`` (B, S)
-    by the full forward (``make_prefill_step``'s) and by S decode steps
-    from a zero cache fed the same tokens, in the model's activation
-    dtype."""
-    B, S = tokens.shape
+    by the full forward (``make_prefill_step``'s), in the model's
+    activation dtype."""
     with torch.no_grad():
-        pre = model.forward(params, {"tokens": tokens})[0].float()
+        return model.forward(params, {"tokens": tokens})[0].float()
+
+
+def decode_logits(model, params: dict, tokens: torch.Tensor):
+    """The same by S decode steps from a zero cache fed the tokens."""
+    B, S = tokens.shape
     cache = model.init_cache(B, S, dtype=model.cfg.dtype, device=DEVICE)
-    dec = torch.empty_like(pre)
+    dec = None
     for i in range(S):
         lg, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
                                       i + 1)
+        if dec is None:
+            dec = torch.empty((B, S, lg.shape[-1]), dtype=torch.float32,
+                              device=lg.device)
         dec[:, i] = lg[:, 0].float()
-    return pre, dec
+    return dec
 
 
 def teacher_forcing(cfg, params: dict, tokens: torch.Tensor,
@@ -3718,7 +3776,9 @@ def teacher_forcing(cfg, params: dict, tokens: torch.Tensor,
     margin is at least twice the larger bf16 error, so that no such error
     can flip their greedy token."""
     from repro_torch.models.registry import build_model
-    pre, dec = tf_logits(build_model(cfg), params, tokens)
+    model = build_model(cfg)
+    pre = prefill_logits(model, params, tokens)
+    dec = decode_logits(model, params, tokens)
     out = dict(rows=tokens.numel(), served=max_abs_err(dec, pre),
                max_logit=float(pre.abs().max()),
                tokens_agree=int((dec.argmax(-1) == pre.argmax(-1)).sum()),
@@ -3727,9 +3787,9 @@ def teacher_forcing(cfg, params: dict, tokens: torch.Tensor,
     if served_only:
         out["greedy"] = dec.argmax(-1)
         return out
-    pre32, dec32 = tf_logits(
-        build_model(dataclasses.replace(cfg, dtype="float32")), params,
-        tokens)
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    pre32 = prefill_logits(model, params, tokens)
+    dec32 = decode_logits(model, params, tokens)
     out.update(f32=max_abs_err(dec32, pre32), max_logit=float(
         pre32.abs().max()), dec_vs_f32=max_abs_err(dec, pre32),
         pre_vs_f32=max_abs_err(pre, pre32),
@@ -3949,9 +4009,11 @@ def prefill_cell(cfg, model, params: dict, seed: int) -> dict:
                 flops=flops, tokens_per_s=B * S / ms * 1e3)
 
 
-def greedy_generation(cfg, model, params: dict, seed: int):
+def greedy_generation(cfg, model, params: dict, seed: int, bound=None):
     """SERVE_PROMPT prompt tokens from the seed fed through the serve step,
-    then SERVE_GEN greedy tokens; the step's time and profile."""
+    then SERVE_GEN greedy tokens; the step's time and profile beside
+    ``bound(B, cache length, step)`` (default: ``decode_bound``, every
+    weight read)."""
     from repro_torch.train.train_step import make_serve_step
     B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
     serve = make_serve_step(model)
@@ -3975,7 +4037,11 @@ def greedy_generation(cfg, model, params: dict, seed: int):
     step_ms = host_ms(lambda: serve(params, cache, tok, P + G), 5)
     prof = profile_call(f"serve step {cfg.name} (B {B}, cache {P + G})",
                         lambda: serve(params, cache, tok, P + G))
-    bound, by, _ = decode_bound(cfg, params, B, P + G)
+    if bound is None:
+        bound, by, _ = decode_bound(cfg, params, B, P + G)
+    else:
+        bound, by, _ = bound(B, P + G,
+                             lambda: serve(params, cache, tok, P + G))
     log(f"[serve] {cfg.name} greedy: {P} prompt + {G} tokens x batch {B} "
         f"in {wall:.1f} ms ({B * G / wall * 1e3:.1f} generated tokens/s); "
         f"one step {step_ms:.3f} ms (best of 5), {B / step_ms * 1e3:.1f} "
@@ -4129,6 +4195,707 @@ def phase_serve(seed: int, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# (k) the MoE and VLM families: serving at full width, training with BB
+# checkpoints
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite-16b (MLA, 64 experts top-6 + 2 shared, a dense first
+# layer) and moonshot-v1-16b-a3b (GQA, the same experts) and qwen2-vl-2b
+# (M-RoPE, qkv biases, patch embeddings) at full width under the reference's
+# serving dtypes, their parameter trees' sizes as the reference's
+# (tests/test_torch_families.py); deepseek's decode_32k with the MLA latent
+# cache, B 128 cut to 32 (32.6 GB of cache beside 31.4 GB of weights), and
+# its prefill at S 4096, B 1; moonshot (56.8 GB of weights) has no
+# long-cache cell; qwen2-vl's prefill_32k, B 32 cut to 4 as phase j's
+# gemma3-1b, with 1024 patch embeddings (a 32 x 32 grid); training: the
+# launcher on qwen2-vl-2b at full width, then deepseek at full width cut to
+# two layers (dense, moe), FAMILY_TRAIN_STEPS steps, a save and a restore
+# through the deployment policy.
+FAMILY_MOE = ("deepseek-v2-lite-16b", "moonshot-v1-16b-a3b")
+FAMILY_VLM = "qwen2-vl-2b"
+FAMILY_TREES = {"deepseek-v2-lite-16b": 15_706_484_224,
+                "moonshot-v1-16b-a3b": 28_386_592_768,
+                "qwen2-vl-2b": 1_543_714_304}
+MLA_DECODE = ("decode_32k", 32768, 32)
+MLA_PREFILL = ("prefill_4k", 4096, 1)
+MLA_CHECK_ROWS = 4             # batch rows of the float64 absorbed decode
+MLA_TOL = 2e-2
+VLM_PREFILL = ("prefill_32k", 32768, 4)
+VLM_GRID = 32                  # 32 x 32 = 1024 patch embeddings
+FAMILY_TRAIN_KINDS = ("dense", "moe")
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS = 4, 1024, 3
+VLM_LAUNCH_ARGS = ["--full", "--arch", FAMILY_VLM]
+
+
+class RouterProbe:
+    """While on, records every call of the MoE router (``models/moe.py``'s
+    ``_router``, wrapped): its ids (N, k) and float32 logits (N, E), left on
+    the card.  Used on the runs that read routing only, never on the timed
+    ones (it recomputes the logits)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls = moe, moe._router, []
+
+    def __enter__(self):
+        real = self.real
+
+        def router(params, x, cfg):
+            out = real(params, x, cfg)
+            self.calls.append((out[0], (x @ params["router"].to(x.dtype))
+                               .float()))
+            return out
+        self.moe._router = router
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.real
+
+    def dropped(self, cfg) -> int:
+        """Routed copies the ``dropping`` dispatch dropped over the calls
+        (each call one capacity group, as that dispatch's)."""
+        from repro_torch.models.moe import capacity, dropped_copies
+        k, E = cfg.num_experts_per_tok, cfg.num_experts
+        return sum(int(dropped_copies(ids.reshape(1, -1), E,
+                                      capacity(ids.shape[0], k, E)))
+                   for ids, _ in self.calls)
+
+    def by_position(self, B: int, S: int, decode: bool):
+        """The calls as (layers, B, S, k) sorted ids and (layers, B, S, E)
+        logits: a prefill makes one call a MoE layer over B x S tokens, a
+        decode one a layer a step over B."""
+        ids = torch.stack([i for i, _ in self.calls])
+        lg = torch.stack([g for _, g in self.calls])
+        if decode:
+            L = ids.shape[0] // S
+            ids = ids.view(S, L, B, -1).permute(1, 2, 0, 3)
+            lg = lg.view(S, L, B, -1).permute(1, 2, 0, 3)
+        else:
+            ids = ids.view(ids.shape[0], B, S, -1)
+            lg = lg.view(lg.shape[0], B, S, -1)
+        return ids.sort(dim=-1).values, lg
+
+
+def routing_reach(runs: dict, base: str, B: int, S: int):
+    """Positions (B, S) at or after the first token of their row whose
+    top-k expert set differs, at any MoE layer, between any run and the
+    ``base`` run (a flip moves its token's output by O(1), and attention
+    carries it to the later tokens); and the flipped tokens' count."""
+    want = runs[base][0]
+    flipped = torch.zeros((B, S), dtype=torch.bool, device=want.device)
+    for ids, _ in runs.values():
+        flipped |= (ids != want).any(dim=-1).any(dim=0)
+    first = torch.where(flipped, torch.arange(S, device=want.device),
+                        S).amin(dim=1)
+    reached = torch.arange(S, device=want.device)[None] >= first[:, None]
+    return reached, int(flipped.sum())
+
+
+def family_teacher_forcing(cfg, params: dict, tokens: torch.Tensor) -> dict:
+    """Decode against prefill over ``tokens`` with the ``dense`` dispatch
+    on both sides (no capacity drops), served (bf16 activations) and with
+    float32 activations on the same bf16 params: phase j's statistics over
+    every position.  A bf16 side routes some near-tied tokens to other
+    experts than the float32 prefill does; that is part of its rounding,
+    as it is of the bf16 prefill the gate measures it against.  Reported:
+    the tokens whose top-k set differs, at any MoE layer, between any run
+    and the float32 prefill; the positions before the first such token of
+    their row; and the share of tokens whose routing is decided (the gap
+    between their k-th and (k+1)-th router logit in the float32 prefill,
+    at every MoE layer, above twice their largest bf16 router-logit
+    difference)."""
+    from repro_torch.models.registry import build_model
+    B, S = tokens.shape
+    runs, logits = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        model = build_model(dataclasses.replace(cfg, dtype=dtype),
+                            moe_impl="dense")
+        for side, fn in (("pre", prefill_logits), ("dec", decode_logits)):
+            with RouterProbe() as probe:
+                logits[side, dtype] = fn(model, params, tokens)
+            if cfg.is_moe:
+                runs[side, dtype] = probe.by_position(B, S, side == "dec")
+    flips, before_flips, decided = 0, B * S, 0.0
+    if cfg.is_moe:
+        reached, flips = routing_reach(runs, ("pre", "float32"), B, S)
+        before_flips = int((~reached).sum())
+        noise = (runs["pre", "bfloat16"][1] - runs["pre", "float32"][1]
+                 ).abs().amax(dim=-1)
+        top = runs["pre", "float32"][1].topk(cfg.num_experts_per_tok + 1,
+                                             dim=-1).values
+        decided = float(((top[..., -2] - top[..., -1]) > 2 * noise)
+                        .all(dim=0).float().mean())
+
+    def err(a, b):
+        return max_abs_err(logits[a], logits[b])
+    pre, dec = logits["pre", "bfloat16"], logits["dec", "bfloat16"]
+    pre32 = logits["pre", "float32"]
+    out = dict(rows=B * S, flipped_tokens=flips, before_flips=before_flips,
+               routing_decided=decided,
+               served=err(("dec", "bfloat16"), ("pre", "bfloat16")),
+               f32=err(("dec", "float32"), ("pre", "float32")),
+               dec_vs_f32=err(("dec", "bfloat16"), ("pre", "float32")),
+               pre_vs_f32=err(("pre", "bfloat16"), ("pre", "float32")),
+               max_logit=float(pre32.abs().max()),
+               tokens_agree=int((dec.argmax(-1) == pre.argmax(-1)).sum()),
+               finite=all(bool(torch.isfinite(t).all())
+                          for t in logits.values()))
+    top2 = pre32.topk(2, dim=-1).values
+    rows = top2[..., 0] - top2[..., 1] >= \
+        2 * max(out["dec_vs_f32"], out["pre_vs_f32"])
+    want = pre32.argmax(-1)
+    out.update(decided=int(rows.sum()), decided_agree=int(
+        ((dec.argmax(-1) == want) & (pre.argmax(-1) == want) & rows).sum()))
+    return out
+
+
+def expert_leaf(path) -> bool:
+    return "moe" in path and path[-1] in ("wi_gate", "wi_up", "wo")
+
+
+def family_weights(cfg, params: dict):
+    """(matrix elements a token's products read apart from the experts,
+    their bytes, one expert's bytes): the stacked matrices but the expert
+    leaves, and the unembedding."""
+    from repro_torch.models.param import iter_leaves
+    head = params["embed"]["embedding" if cfg.tie_embeddings else "lm_head"]
+    n, nbytes = head.numel(), head.numel() * head.element_size()
+    expert = 0
+    for path, t in iter_leaves(params["stack"]):
+        if expert_leaf(path):
+            expert += t[0, 0].numel() * t.element_size()
+        elif t.ndim >= 3:
+            n += t.numel()
+            nbytes += t.numel() * t.element_size()
+    return n, nbytes, expert
+
+
+def n_moe_layers(cfg) -> int:
+    from repro_torch.models.transformer import layer_kind_list
+    return sum(cfg.is_moe and k != "dense" for k in layer_kind_list(cfg))
+
+
+def cache_bytes_a_token(cfg) -> int:
+    """bf16 cache bytes a token a layer: MLA's latent and rope key, or k
+    and v."""
+    if cfg.use_mla:
+        return 2 * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    return 2 * 2 * cfg.num_kv_heads * cfg.head_dim
+
+
+def attention_flops_a_key(cfg) -> float:
+    """Float32 operations a (query, key) pair costs a layer: q·k and p·v
+    over the heads (MLA's absorbed decode: its latent width twice and its
+    rope width; its prefill: the padded 192-wide heads)."""
+    if cfg.use_mla:
+        return 2.0 * cfg.num_heads * (
+            2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    return 4.0 * cfg.num_heads * cfg.head_dim
+
+
+def routed_experts(cfg, step) -> int:
+    """Distinct (layer, expert) pairs one call of ``step`` routes to."""
+    with RouterProbe() as probe:
+        step()
+    return sum(int(ids.unique().numel()) for ids, _ in probe.calls)
+
+
+def family_decode_bound(cfg, params: dict, B: int, S: int, experts: int):
+    """Least time of one decode step at cache length S: the weights read
+    once (of the experts, the ``experts`` pairs the step routes to), every
+    cache position of every layer read once and the new ones written, the
+    logits written; operations: the products' multiply-adds (k experts a
+    token a MoE layer) at the bf16 tensor peak and the attention's in
+    float32 at the SIMT peak."""
+    n, w_bytes, one_expert = family_weights(cfg, params)
+    L = cfg.num_layers
+    nbytes = (w_bytes + experts * one_expert
+              + B * L * (S + 1) * cache_bytes_a_token(cfg)
+              + B * cfg.padded_vocab * 2)
+    mm = 2.0 * B * (n + n_moe_layers(cfg) * cfg.num_experts_per_tok *
+                    one_expert / 2)
+    attn = B * L * S * attention_flops_a_key(cfg)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (mm / BF16_TENSOR_OPS_PER_S + attn / SIMPLE_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes)
+
+
+def family_prefill_bound(cfg, params: dict, B: int, S: int):
+    """Least time of a prefill: the products' multiply-adds over every
+    token (k experts a token a MoE layer; the unembedding over the last
+    token only) at the bf16 tensor peak, the causal attention's pairs in
+    float32 at the SIMT peak (MLA's prefill at its 192-wide heads, q·k and
+    the padded p·v); bytes: weights, tokens and logits once."""
+    n, w_bytes, one_expert = family_weights(cfg, params)
+    head = cfg.padded_vocab * cfg.d_model
+    per_token = n - head + n_moe_layers(cfg) * cfg.num_experts_per_tok * \
+        one_expert / 2
+    mm = 2.0 * B * S * per_token + 2.0 * B * head
+    width = (4.0 * cfg.num_heads * (cfg.qk_nope_head_dim +
+                                    cfg.qk_rope_head_dim)
+             if cfg.use_mla else 4.0 * cfg.num_heads * cfg.head_dim)
+    attn = B * cfg.num_layers * width * S * (S + 1) / 2
+    t_ops = (mm / BF16_TENSOR_OPS_PER_S + attn / SIMPLE_OPS_PER_S) * 1e3
+    t_bytes = (w_bytes + n_moe_layers(cfg) * cfg.num_experts * one_expert
+               + B * S * 4 + B * cfg.padded_vocab * 2) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), mm + attn
+
+
+def family_model(name: str, seed: int):
+    """``serving_model`` with the parameter tree's size checked."""
+    cfg, model, params = serving_model(name, seed)
+    n = model.param_count()
+    check(n == FAMILY_TREES[name], f"{name} has {n} params")
+    log(f"[family] {name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {n:,} params ({tree_bytes(params) / 1e9:.3f}"
+        f" GB bf16); {'MLA, ' if cfg.use_mla else ''}"
+        f"{'M-RoPE, ' if cfg.mrope else ''}"
+        + (f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} + "
+           f"{cfg.num_shared_experts} shared, {n_moe_layers(cfg)} MoE layers"
+           if cfg.is_moe else f"{cfg.num_heads} heads, kv {cfg.num_kv_heads}"))
+    return cfg, model, params
+
+
+def family_serving(name: str, seed: int):
+    """Greedy B 4 x (16 + 32) tokens under the default ``dropping``
+    dispatch beside the bound of the experts a step routes to; at the
+    reference init (reported): the decode steps reproduce the greedy
+    tokens, the ``dropping`` prefill of those tokens, its dropped copies
+    and its distance from decode; at the per-layer fan-in (checked):
+    ``family_teacher_forcing``."""
+    cfg, model, params = family_model(name, seed)
+    out = {"params": model.param_count(),
+           "param_gb": tree_bytes(params) / 1e9}
+    experts = {}
+
+    def bound(B, S, step):
+        experts["n"] = routed_experts(cfg, step) if cfg.is_moe else 0
+        return family_decode_bound(cfg, params, B, S, experts["n"])
+
+    tokens, out["greedy"] = greedy_generation(cfg, model, params, seed,
+                                              bound=bound)
+    out["greedy"]["experts_read"] = experts["n"]
+    with RouterProbe() as probe:
+        pre = prefill_logits(model, params, tokens)
+    dec = decode_logits(model, params, tokens)
+    check(torch.equal(dec.argmax(-1)[:, SERVE_PROMPT - 1:-1].int(),
+                      tokens[:, SERVE_PROMPT:]),
+          f"{name}: teacher-forced decode does not reproduce the greedy "
+          f"tokens")
+    dropped = probe.dropped(cfg) if cfg.is_moe else 0
+    out["tf_reference_init"] = dict(
+        prefill_dropped=dropped, copies=tokens.numel() *
+        cfg.num_experts_per_tok * n_moe_layers(cfg) if cfg.is_moe else 0,
+        served=max_abs_err(dec, pre), max_logit=float(pre.abs().max()),
+        tokens_agree=int((dec.argmax(-1) == pre.argmax(-1)).sum()),
+        rows=tokens.numel())
+    r = out["tf_reference_init"]
+    log(f"[family] {name} at the reference init (reported, not checked): "
+        f"the decode steps reproduce the {SERVE_GEN} greedy tokens; the "
+        f"default 'dropping' prefill of those {tokens.numel()} tokens drops "
+        f"{dropped} of {r['copies']} routed copies (decode, {SERVE_BATCH} "
+        f"tokens a step, drops none); its max |decode - prefill| "
+        f"{r['served']:.4f} of max |logit| {r['max_logit']:.4f}, greedy "
+        f"tokens agree on {r['tokens_agree']} of {r['rows']} rows")
+    del pre, dec
+    condition(params)
+    tf = out["tf"] = family_teacher_forcing(cfg, params, tokens)
+    if cfg.is_moe:
+        log(f"[family] {name} teacher forcing, 'dense' dispatch both sides:"
+            f" {tf['flipped_tokens']} of {tf['rows']} tokens routed to "
+            f"another expert set by a run than by the float32 prefill at "
+            f"some MoE layer ({tf['before_flips']} positions before the "
+            f"first such token of their row); routing decided at every "
+            f"layer on {tf['routing_decided']:.3f} of tokens")
+    check_teacher_forcing(name, tf)
+    return cfg, model, params, out
+
+
+def mla_latent_f64(q_lat, q_pe, c_kv, k_pe, L: int, scale: float):
+    """``mla_latent_attention`` in float64 over positions below L."""
+    ckv, kpe = c_kv[:, :L].double(), k_pe[:, :L].double()
+    s = (torch.einsum("bshr,btr->bhst", q_lat.double(), ckv) +
+         torch.einsum("bshk,btk->bhst", q_pe.double(), kpe)) * scale
+    return torch.einsum("bhst,btr->bshr", torch.softmax(s, dim=-1), ckv)
+
+
+def mla_decode_f64(cfg, p: dict, x, pos, c: dict, L: int):
+    """One MLA layer's absorbed decode of x (B, 1, d) in float64 from the
+    cache as written (RoPE in float32, as the port's)."""
+    from repro_torch.models.layers import apply_rope
+    B, d = x.shape[0], cfg.d_model
+    H, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    q = (x.double() @ p["wq"].double().reshape(d, -1)).view(B, 1, H, dn + dr)
+    q_pe = apply_rope(q[..., dn:], pos, cfg.rope_theta)
+    q_lat = torch.einsum("bshk,rhk->bshr", q[..., :dn], p["w_uk"].double())
+    o_lat = mla_latent_f64(q_lat, q_pe, c["c_kv"], c["k_pe"], L,
+                           1.0 / math.sqrt(dn + dr))
+    o = torch.einsum("bshr,rhk->bshk", o_lat, p["w_uv"].double())
+    return o.reshape(B, 1, H * dv) @ p["wo"].double().reshape(H * dv, d)
+
+
+def mla_decode_cell(cfg, model, params: dict, seed: int) -> dict:
+    """decode_32k with the latent cache filled from the seed: one serve
+    step's time, profile and bound; MLA layer 1's absorbed decode against
+    float64 on MLA_CHECK_ROWS rows: its ``o_lat`` and its output."""
+    from repro_torch.models.attention import (apply_mla,
+                                              mla_latent_attention,
+                                              mla_project)
+    from repro_torch.train.train_step import make_serve_step
+    name, S, B = MLA_DECODE
+    serve = make_serve_step(model)
+    cache = model.init_cache(B, S, device=DEVICE)
+    fill_cache(cache, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    nxt, _ = serve(params, cache, tok, S)
+    check(nxt.shape == (B,) and bool(((0 <= nxt) &
+                                      (nxt < cfg.padded_vocab)).all()),
+          f"{name}: greedy tokens out of range")
+    step_ms = host_ms(lambda: serve(params, cache, tok, S), 3)
+    prof = profile_call(f"serve step {cfg.name} {name} (B {B}, cache {S})",
+                        lambda: serve(params, cache, tok, S))
+    experts = routed_experts(cfg, lambda: serve(params, cache, tok, S))
+    bound, by, nbytes = family_decode_bound(cfg, params, B, S, experts)
+    n = MLA_CHECK_ROWS
+    p = layer_cache(cfg, params["stack"], 1)["attn"]
+    c = layer_cache(cfg, cache, 1)
+    c = {k: v[:n] for k, v in c.items()}
+    x = torch.randn((n, 1, cfg.d_model), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    pos = torch.full((n, 1), S - 1, dtype=torch.int32, device=DEVICE)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    q_nope, q_pe, _, _ = mla_project(p, x, pos, cfg)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    o_lat = mla_latent_attention(q_lat, q_pe, c["c_kv"], c["k_pe"], S, scale)
+    err = {"o_lat": max_abs_err(o_lat, mla_latent_f64(
+        q_lat, q_pe, c["c_kv"], c["k_pe"], S, scale))}
+    got = apply_mla(p, x, pos, cfg, cache=c, cache_len=S)
+    want = mla_decode_f64(cfg, p, x, pos, c, S)
+    err["out"] = max_abs_err(got, want) / float(want.abs().max())
+    check(err["o_lat"] <= MLA_TOL and err["out"] <= MLA_TOL,
+          f"{name}: absorbed decode against float64: {err}")
+    cache_gb = tree_bytes(cache) / 1e9
+    del cache
+    log(f"[family] {cfg.name} {name}: B {B}, latent cache {S} "
+        f"({cache_gb:.2f} GB bf16); step {step_ms:.3f} ms (host clock, best "
+        f"of 3), device busy {prof['busy_ms']:.3f} ms; bound {bound:.4f} ms "
+        f"({by}, {nbytes / 1e9:.3f} GB: {experts} routed experts read), "
+        f"{bound / prof['busy_ms']:.3f} of it busy; absorbed decode vs "
+        f"float64: o_lat {err['o_lat']:.2e}, layer output {err['out']:.2e} "
+        f"of its largest")
+    return dict(batch=B, cache_len=S, cache_gb=cache_gb, step_ms=step_ms,
+                busy_ms=prof["busy_ms"], idle=prof["idle"],
+                launches=prof["launches"], syncs=prof["syncs"],
+                bound_ms=bound, bound_by=by, bound_bytes=nbytes,
+                experts_read=experts, err=err, tokens_per_s=B / step_ms * 1e3)
+
+
+def family_prefill(cfg, model, params: dict, seed: int, cell,
+                   vlm: bool = False) -> dict:
+    """``make_prefill_step`` at ``cell`` (name, S, B) from the seed: finite
+    last logits, time (one call, after a probed one for a MoE) beside the
+    operations bound; the
+    VLM's batch with VLM_GRID² patch embeddings and their M-RoPE positions
+    (temporal 0, the grid's rows and columns; text after them advancing on
+    all three streams), and the dropped copies of a MoE prefill."""
+    from repro_torch.train.train_step import make_prefill_step
+    name, S, B = cell
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=DEVICE,
+                                     dtype=torch.int32)}
+    if vlm:
+        n = VLM_GRID ** 2
+        i = torch.arange(n, device=DEVICE)
+        text = VLM_GRID + torch.arange(S - n, device=DEVICE)
+        pos = torch.stack([torch.cat([0 * i, text]),
+                           torch.cat([i // VLM_GRID, text]),
+                           torch.cat([i % VLM_GRID, text])]).int()
+        batch["mrope_positions"] = pos[:, None].expand(3, B, S)
+        batch["patch_embeds"] = (0.02 * torch.randn(
+            (B, n, cfg.d_model), generator=gen, device=DEVICE)).to(
+            torch.bfloat16)
+    prefill = make_prefill_step(model)
+    dropped = 0
+    if cfg.is_moe:
+        with RouterProbe() as probe:
+            prefill(params, batch)
+        dropped = probe.dropped(cfg)
+    box = {}
+    ms = host_ms(lambda: box.update(last=prefill(params, batch)), 1)
+    last = box.pop("last")
+    check(last.shape == (B, cfg.padded_vocab) and
+          bool(torch.isfinite(last).all()),
+          f"{name}: last logits {tuple(last.shape)} not finite")
+    bound, by, flops = family_prefill_bound(cfg, params, B, S)
+    log(f"[family] {cfg.name} {name}: B {B} x {S} tokens"
+        f"{f' ({VLM_GRID ** 2} patch embeddings, M-RoPE)' if vlm else ''}, "
+        f"finite last logits; {ms:.1f} ms (host clock, "
+        f"{'the second call' if cfg.is_moe else 'one call'}), "
+        f"{B * S / ms * 1e3:.0f} tokens/s; bound {bound:.3f} ms ({by}: "
+        f"{flops / 1e12:.2f} TFLOP), {bound / ms:.3f} of it"
+        + (f"; the 'dropping' dispatch dropped {dropped} routed copies"
+           if cfg.is_moe else ""))
+    return dict(batch=B, seq=S, ms=ms, bound_ms=bound, bound_by=by,
+                flops=flops, tokens_per_s=B * S / ms * 1e3, dropped=dropped)
+
+
+class HeldAgainstPlain:
+    """While on, every call the checkpoint manager makes to its two
+    kernels (``fletcher_segmented`` through ``leaf_checksums``,
+    ``route_chunks_segmented`` through ``route_leaves``) is held against
+    the kernel's plain version on the same inputs, bit for bit, as soon as
+    it returns: the saves' and restores' own leaves, in their own layout.
+    The plain versions launch no kernel, so the launch counts stay the
+    path's.  ``calls`` and ``rows`` count what was held, by kernel;
+    ``seconds`` is the checks' share of the wall time."""
+
+    def __init__(self):
+        from repro_torch.kernels.chunk_router import ops as route_ops
+        from repro_torch.kernels.chunk_router.ref import (
+            route_chunks_segmented_ref)
+        from repro_torch.kernels.fletcher import ops as fletcher_ops
+        from repro_torch.kernels.fletcher.ref import fletcher_segmented_ref
+        self.sites = ((fletcher_ops, "fletcher_segmented",
+                       fletcher_segmented_ref),
+                      (route_ops.cuda, "route_chunks_segmented",
+                       route_chunks_segmented_ref))
+        self.real = {}
+        self.calls = {name: 0 for _, name, _ in self.sites}
+        self.rows = dict(self.calls)
+        self.seconds = 0.0
+
+    def __enter__(self):
+        for module, name, plain in self.sites:
+            self.real[name] = getattr(module, name)
+            setattr(module, name, self._held(name, self.real[name], plain))
+        return self
+
+    def _held(self, name: str, kernel, plain):
+        def call(*a, **k):
+            got = kernel(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(torch.equal(got, plain(*a, **k)),
+                  f"{name} differs from its plain version on a checkpoint's "
+                  f"{got.shape[0]} rows")
+            self.seconds += time.perf_counter() - t0
+            self.calls[name] += 1
+            self.rows[name] += got.shape[0]
+            return got
+        return call
+
+    def __exit__(self, *exc):
+        for module, name, _ in self.sites:
+            setattr(module, name, self.real[name])
+
+    def report(self) -> dict:
+        return dict(calls=self.calls, rows=self.rows,
+                    seconds=self.seconds)
+
+
+def family_launcher(counters) -> dict:
+    """``launch/train.py`` on qwen2-vl-2b at full width (``launch_training``
+    with VLM_LAUNCH_ARGS: the pipeline's VLM batch, patch embeddings and
+    M-RoPE positions, through the train step; one save of 18.5 GB, as the
+    host's 96 GiB hold beside the earlier phases' stores; its checkpoint
+    kernels ``HeldAgainstPlain``), then the freed host memory released for
+    the training part's save."""
+    with HeldAgainstPlain() as held:
+        out = launch_training(counters, VLM_LAUNCH_ARGS,
+                              FAMILY_TREES[FAMILY_VLM], max_saves=1)
+    out["held"] = held.report()
+    check(all(held.calls.values()), f"launcher: held {held.calls}")
+    log(f"[family] launcher's checkpoint kernels held against their plain "
+        f"versions, bit for bit: {held.calls} calls over {held.rows} rows "
+        f"({held.seconds * 1e3:.1f} ms of the wall time)")
+    release_host_memory()
+    out["mem_available_gib"] = mem_available_gib()
+    log(f"[family] host MemAvailable {out['mem_available_gib']:.1f} GiB "
+        f"once freed host memory is released after the launcher")
+    return out
+
+
+def family_training(seed: int, route_counter, checksum_counter,
+                    per_leaf_counter) -> dict:
+    """deepseek-v2-lite-16b at full width cut to two layers (dense, moe):
+    FAMILY_TRAIN_STEPS train steps (finite loss and aux loss), one save of
+    the state through ``CheckpointManager`` under the deployment policy
+    (one routing and one checksum launch, as phases f and h), one restore
+    (one routing launch, one checksum launch a group of leaves) equal to
+    the saved state bit for bit; every one of those launches
+    ``HeldAgainstPlain`` (its time taken out of the save's and the
+    restore's)."""
+    from repro_torch.checkpoint.manager import (VERIFY_GROUP_BYTES,
+                                                CheckpointManager,
+                                                flatten_state)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+    cfg = dataclasses.replace(get_config(FAMILY_MOE[0]),
+                              num_layers=len(FAMILY_TRAIN_KINDS),
+                              layer_kinds=FAMILY_TRAIN_KINDS)
+    model = build_model(cfg)
+    n = model.param_count()
+    params = model.init(seed, DEVICE)
+    opt = AdamW(warmup_steps=1, total_steps=FAMILY_TRAIN_STEPS)
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt)
+    pipe = TokenPipeline(cfg, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, seed=seed)
+    losses, aux, steps_ms = [], [], []
+    for _ in range(FAMILY_TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in pipe.next_batch().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = step(params, opt_state, batch)
+        losses.append(float(met["loss"]))
+        aux.append(float(met["aux_loss"]))
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)) and all(np.isfinite(aux)) and
+          all(a > 0 for a in aux), f"losses {losses}, aux losses {aux}")
+    state = (params, opt_state, torch.tensor(pipe.cursor(), dtype=torch.int32,
+                                             device=DEVICE))
+    state_gb = tree_bytes({"p": params, "m": opt_state.mu,
+                           "n": opt_state.nu}) / 1e9
+    counters = (route_counter, checksum_counter, per_leaf_counter)
+    with tempfile.TemporaryDirectory(prefix="family_ckpt_") as d, \
+            HeldAgainstPlain() as held:
+        ckpt = CheckpointManager(d, deployment_policy(), async_save=False)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(FAMILY_TRAIN_STEPS, state)
+        save_ms = (time.perf_counter() - t0 - held.seconds) * 1e3
+        saved = {c.name: c.launches for c in counters}
+        held_save = held.seconds
+        for c in counters:
+            c.launches = 0
+        like = (params, opt_state, torch.zeros(2, dtype=torch.int32,
+                                               device=DEVICE))
+        t0 = time.perf_counter()
+        restored, got_step = ckpt.restore(FAMILY_TRAIN_STEPS, like)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0 - held.seconds +
+                      held_save) * 1e3
+        loaded = {c.name: c.launches for c in counters}
+        del ckpt
+    gc.collect()
+    same = all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        for (_, a), (_, b) in zip(flatten_state(restored),
+                                  flatten_state(state)))
+    check(got_step == FAMILY_TRAIN_STEPS and same,
+          "the restored deepseek state differs from the saved one")
+    groups = int(state_gb * 1e9) // VERIFY_GROUP_BYTES + 1
+    check(saved[route_counter.name] == 1 and
+          saved[checksum_counter.name] == 1 and
+          loaded[route_counter.name] == 1 and
+          1 <= loaded[checksum_counter.name] <= groups and
+          saved[per_leaf_counter.name] == loaded[per_leaf_counter.name] == 0,
+          f"launches: save {saved}, restore {loaded}")
+    check(held.calls == {route_counter.name: saved[route_counter.name] +
+                         loaded[route_counter.name],
+                         checksum_counter.name:
+                         saved[checksum_counter.name] +
+                         loaded[checksum_counter.name]},
+          f"held {held.calls} of the launches: save {saved}, restore "
+          f"{loaded}")
+    leaves = len(flatten_state(state))
+    log(f"[family] {cfg.name} cut to {cfg.num_layers} layers "
+        f"{FAMILY_TRAIN_KINDS}: {n:,} params, {state_gb:.2f} GB of float32 "
+        f"state; {FAMILY_TRAIN_STEPS} steps at {FAMILY_TRAIN_BATCH} x "
+        f"{FAMILY_TRAIN_SEQ}: losses {['%.4f' % x for x in losses]}, aux "
+        f"{['%.5f' % x for x in aux]}, {['%.1f' % x for x in steps_ms]} ms;"
+        f" save {save_ms:.1f} ms, restore {restore_ms:.1f} ms ({leaves} "
+        f"leaves, bit for bit); launches: save {saved}, restore {loaded}, "
+        f"each held against its plain version, bit for bit ({held.rows} "
+        f"rows, {held.seconds * 1e3:.1f} ms, not in the times); host "
+        f"MemAvailable {mem_available_gib():.1f} GiB after")
+    return dict(params=n, state_gb=state_gb, losses=losses, aux=aux,
+                steps_ms=steps_ms, save_ms=save_ms, restore_ms=restore_ms,
+                leaves=leaves, save_launches=saved, restore_launches=loaded,
+                held=held.report())
+
+
+def phase_families(seed: int, counters, route_counter, checksum_counter,
+                   per_leaf_counter) -> dict:
+    """Phase k (module docstring).  ``counters``: every kernel wrapper's
+    launch count; the serving parts launch none of them, the training
+    parts only the two checkpoint kernels (``route_counter``,
+    ``checksum_counter``), whose launches are returned."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = mem_available_gib()
+    release_host_memory()
+    log(f"[family] host MemAvailable at the start of phase k {held:.1f} "
+        f"GiB, {mem_available_gib():.1f} GiB once freed host memory is "
+        f"released (PyTorch's cached page-locked blocks, malloc_trim)")
+    t_phase = time.perf_counter()
+    peaks, out = {}, {}
+
+    def part_done(name: str) -> None:
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def moved(among, before):
+        return {c.name: c.launches - before[c.name] for c in among
+                if c.launches != before[c.name]}
+
+    torch.cuda.reset_peak_memory_stats()
+    before = {c.name: c.launches for c in counters}
+    cfg, model, params, out[FAMILY_MOE[0]] = family_serving(FAMILY_MOE[0],
+                                                            seed)
+    out[FAMILY_MOE[0]][MLA_DECODE[0]] = mla_decode_cell(cfg, model, params,
+                                                        seed)
+    out[FAMILY_MOE[0]][MLA_PREFILL[0]] = family_prefill(cfg, model, params,
+                                                        seed, MLA_PREFILL)
+    del cfg, model, params
+    part_done(FAMILY_MOE[0])
+    out[FAMILY_MOE[1]] = family_serving(FAMILY_MOE[1], seed)[3]
+    part_done(FAMILY_MOE[1])
+    cfg, model, params, out[FAMILY_VLM] = family_serving(FAMILY_VLM, seed)
+    out[FAMILY_VLM][VLM_PREFILL[0]] = family_prefill(cfg, model, params, seed,
+                                                     VLM_PREFILL, vlm=True)
+    del cfg, model, params
+    part_done(FAMILY_VLM)
+    check(not moved(counters, before), f"kernels launched on the serving "
+                                       f"path: {moved(counters, before)}")
+    # the launcher and the training part zero and read the two checkpoint
+    # kernels' counts themselves; every other count must stay
+    ckpt = (route_counter, checksum_counter)
+    others = [c for c in counters if c not in ckpt]
+    before = {c.name: c.launches for c in others}
+    out["launcher"] = family_launcher((checksum_counter, route_counter))
+    part_done("launcher")
+    check(not moved(others, before), f"the launcher launched "
+                                     f"{moved(others, before)}")
+    out["training"] = family_training(seed, route_counter, checksum_counter,
+                                      per_leaf_counter)
+    part_done("training")
+    tr = out["training"]
+    launches = {c.name: out["launcher"]["launches"][c.name] +
+                tr["save_launches"][c.name] + tr["restore_launches"][c.name]
+                for c in ckpt}
+    out["launches"] = launches
+    out["peak_gib"] = peaks
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[family] phase k: peak device memory by part (GiB) "
+        f"{ {k: round(v, 2) for k, v in peaks.items()} }, launches "
+        f"{launches}, wall {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4222,6 +4989,15 @@ def main() -> int:
             DEST_HISTOGRAM2D, FLETCHER, FLASH_ATTENTION, FLASH_ATTENTION_F32,
             FLASH_ATTENTION_WIDE, DEST_HISTOGRAM))
         log(json.dumps({"serve": serve}))
+        del serve
+        phase = "families"
+        fam = phase_families(args.seed, counters + ckpt_counters + (
+            DEST_HISTOGRAM2D, FLETCHER, FLASH_ATTENTION, FLASH_ATTENTION_F32,
+            FLASH_ATTENTION_WIDE, DEST_HISTOGRAM), ROUTE_CHUNKS_SEGMENTED,
+            FLETCHER_SEGMENTED, FLETCHER)
+        for name, n in fam["launches"].items():
+            launches[name] += n
+        log(json.dumps({"families": fam}))
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -10,7 +10,8 @@ from repro_torch.configs.shapes import (ALL_SHAPES,  # noqa: F401
                                         applicable_shapes, shape_applicable,
                                         skip_reason)
 
-_ARCH_MODULES = ("gemma_7b", "minitron_8b", "qwen1_5_110b", "gemma3_1b")
+_ARCH_MODULES = ("gemma_7b", "minitron_8b", "qwen1_5_110b", "gemma3_1b",
+                 "deepseek_v2_lite_16b", "moonshot_v1_16b_a3b", "qwen2_vl_2b")
 
 
 def load_all() -> None:

@@ -1,6 +1,6 @@
 """Attention (twin of ``repro.models.attention``): grouped-query attention
-with full causal or sliding-window masks, qkv biases, and the KV cache with
-one-token decode.
+with full causal or sliding-window masks, qkv biases, M-RoPE, the KV cache
+with one-token decode, and multi-head latent attention (MLA).
 
 Layouts follow the JAX package: ``wq (d, H, D)``, ``wk``/``wv (d, KV, D)``,
 ``wo (H, D, d)``, biases ``bq (H, D)``, ``bk``/``bv (KV, D)``; activations
@@ -26,7 +26,14 @@ decode and prefill differ on local layers from position ``window`` on, as
 they do in the reference; the port keeps both sides as the reference has
 them.  Unlike the reference, which returns a new cache, the port writes the
 cache in place (a copy of the whole cache a step would cost more than the
-step).  MLA and M-RoPE are not ported yet.
+step).
+
+MLA (DeepSeek-V2, ``apply_mla``) computes two different functions, as the
+reference does: prefill and training materialise per-head keys and values
+from the latent and run the online softmax at head dim ``dn + dr`` (v
+zero-padded to it); decode runs in the latent space against a cache of
+``{"c_kv" (B, L, r), "k_pe" (B, L, dr)}`` (weight absorption), also written
+in place.
 """
 from __future__ import annotations
 
@@ -37,8 +44,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_rope
-from repro_torch.models.param import P, torch_dtype
+from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm
+from repro_torch.models.param import P, dense, torch_dtype
 
 BLOCK_KV = 512    # online-softmax KV block (the reference's)
 BLOCK_Q = 1024    # q block of the blocked forms (the reference's windowed one)
@@ -52,9 +59,14 @@ NEG_INF = -1e30
 # parameter descriptors
 # ---------------------------------------------------------------------------
 def describe_attention(cfg: ModelConfig) -> dict:
-    if cfg.use_mla:
-        raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1)")
     d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.use_mla:
+        r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        return {"wq": P((d, H, dn + dr)), "w_dkv": dense(d, r),
+                "w_kpe": dense(d, dr),
+                "kv_norm": P((r,), init="ones", dtype="float32"),
+                "w_uk": P((r, H, dn)), "w_uv": P((r, H, cfg.v_head_dim)),
+                "wo": P((H, cfg.v_head_dim, d))}
     out = {"wq": P((d, H, D)), "wk": P((d, KV, D)), "wv": P((d, KV, D)),
            "wo": P((H, D, d))}
     if cfg.qkv_bias:
@@ -216,9 +228,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # full GQA attention layer
 # ---------------------------------------------------------------------------
 def project_heads(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig,
+                  mrope_positions: Optional[torch.Tensor] = None):
     """(B, S, d) → q (B, S, H, D), k and v (B, S, KV, D) in x's dtype: the
-    projections, the qkv biases, RoPE on q and k."""
+    projections, the qkv biases, RoPE on q and k (M-RoPE where the config
+    has it and ``mrope_positions`` (3, B, S) are given)."""
     B, S, d = x.shape
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -229,37 +243,46 @@ def project_heads(params: dict, x: torch.Tensor, positions: torch.Tensor,
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
+    if cfg.mrope and mrope_positions is not None:
+        return (apply_mrope(q, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections), v)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig,
+                mrope_positions: Optional[torch.Tensor] = None):
     """``project_heads`` with k and v GQA-expanded to (B, S, H, D)."""
-    q, k, v = project_heads(params, x, positions, cfg)
+    q, k, v = project_heads(params, x, positions, cfg, mrope_positions)
     G = cfg.num_heads // cfg.num_kv_heads
     return q, repeat_kv(k, G), repeat_kv(v, G)
 
 
-def write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                cache_len: int) -> None:
-    """Write the new (B, n, KV, D) k and v into ``cache`` in place at
+def write_cache(cache: dict, new: dict, cache_len: int) -> None:
+    """Write each new (B, n, ...) entry of ``new`` (k and v, or MLA's c_kv
+    and k_pe) into the cache leaf of its name, in place, at
     ``cache_len - 1``, the start clamped into [0, max_len - n] as the
     reference's ``dynamic_update_slice`` clamps it: past the end of the
     cache the last slots are overwritten."""
-    if k.dtype != cache["k"].dtype:
-        raise TypeError(f"cache of {cache['k'].dtype} written with "
-                        f"{k.dtype} keys (the reference refuses it too)")
-    S, n = cache["k"].shape[1], k.shape[1]
-    idx = min(max(cache_len - 1, 0), S - n)
-    cache["k"][:, idx:idx + n] = k
-    cache["v"][:, idx:idx + n] = v
+    for name, rows in new.items():
+        leaf = cache[name]
+        if rows.dtype != leaf.dtype:
+            raise TypeError(f"cache of {leaf.dtype} written with "
+                            f"{rows.dtype} {name} (the reference refuses it "
+                            f"too)")
+        S, n = leaf.shape[1], rows.shape[1]
+        idx = min(max(cache_len - 1, 0), S - n)
+        leaf[:, idx:idx + n] = rows
 
 
 def apply_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, *, window: int = 0,
                     cache: Optional[dict] = None,
                     cache_len: Optional[int] = None,
+                    mrope_positions: Optional[torch.Tensor] = None,
                     sink_len: int = 0) -> torch.Tensor:
     """(B, S, d) → (B, S, d).
 
@@ -267,18 +290,19 @@ def apply_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     sliding-window, otherwise it is full causal.  Decode: x is (B, 1, d),
     ``cache`` one layer's ``{"k", "v"}`` of (B, max_len, KV, D), written in
     place at ``cache_len - 1`` (an int: the tokens valid, the new one
-    included)."""
+    included).  ``mrope_positions`` (3, B, S) replace RoPE by M-RoPE where
+    the config has it."""
     B, S, d = x.shape
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(D)
     if cache is not None:
-        q, k, v = project_heads(params, x, positions, cfg)
-        write_cache(cache, k, v, cache_len)
+        q, k, v = project_heads(params, x, positions, cfg, mrope_positions)
+        write_cache(cache, {"k": k, "v": v}, cache_len)
         o = decode_attention(q, cache["k"], cache["v"], cache_len,
                              window=window, scale=scale, groups=H // KV,
                              sink_len=sink_len)
     else:
-        q, kx, vx = project_qkv(params, x, positions, cfg)
+        q, kx, vx = project_qkv(params, x, positions, cfg, mrope_positions)
         window = window if window < S else 0
         if B * H * S * S * 4 <= MASKED_SCORES_BYTES:
             o = masked_attention(q, kx, vx, window=window, scale=scale,
@@ -305,3 +329,99 @@ def abstract_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype: str = "bfloat16") -> dict:
     """``init_kv_cache``'s shapes and dtypes as meta tensors (no memory)."""
     return init_kv_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 latent attention)
+# ---------------------------------------------------------------------------
+def mla_latent_attention(q_lat: torch.Tensor, q_pe: torch.Tensor,
+                         c_kv: torch.Tensor, k_pe: torch.Tensor,
+                         cache_len: int, scale: float) -> torch.Tensor:
+    """The absorbed decode's attention in the latent space, in float32:
+    q_lat (B, Sq, H, r) and q_pe (B, Sq, H, dr) against the latent cache
+    c_kv (B, L, r) and k_pe (B, L, dr), positions below ``cache_len``
+    valid; returns the softmax-weighted latent o_lat (B, Sq, H, r) in
+    float32.  ``c_kv``'s float32 copy is made once for both products."""
+    ckv = c_kv.float()
+    s = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv)
+         + torch.einsum("bshk,btk->bhst", q_pe.float(), k_pe.float())) * scale
+    valid = torch.arange(c_kv.shape[1], device=c_kv.device) < cache_len
+    p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
+    return torch.einsum("bhst,btr->bshr", p, ckv)
+
+
+def mla_project(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig):
+    """(B, S, d) → q_nope (B, S, H, dn), q_pe (B, S, H, dr) with RoPE, the
+    normalised latent c_kv (B, S, r) and k_pe (B, S, dr) with RoPE, all in
+    x's dtype."""
+    B, S, d = x.shape
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt).reshape(d, H * (dn + dr))).view(
+        B, S, H, dn + dr)
+    q_pe = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    c_kv = rms_norm(x @ params["w_dkv"].to(dt), params["kv_norm"],
+                    cfg.norm_eps)
+    k_pe = apply_rope((x @ params["w_kpe"].to(dt))[:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0]
+    return q[..., :dn], q_pe, c_kv, k_pe
+
+
+def apply_mla(params: dict, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig, *, cache: Optional[dict] = None,
+              cache_len: Optional[int] = None) -> torch.Tensor:
+    """Multi-head latent attention, (B, S, d) → (B, S, d).
+
+    Prefill / train (``cache`` None): per-head k_nope and v from the
+    latent, k_pe shared by the heads, v zero-padded to ``dn + dr``, the
+    causal ``online_softmax_attention`` at scale 1/sqrt(dn + dr), the
+    output cut back to ``dv``.  Decode: the new c_kv and k_pe written into
+    ``cache`` in place at ``cache_len - 1`` (clamped, ``write_cache``), then
+    the weight-absorbed form: q_nope through ``w_uk`` into the latent,
+    ``mla_latent_attention``, the latent output through ``w_uv``."""
+    B, S, d = x.shape
+    H = cfg.num_heads
+    dn, dr, dv, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim, cfg.kv_lora_rank)
+    dt = x.dtype
+    scale = 1.0 / math.sqrt(dn + dr)
+    q_nope, q_pe, c_kv, k_pe = mla_project(params, x, positions, cfg)
+    if cache is not None:
+        write_cache(cache, {"c_kv": c_kv, "k_pe": k_pe}, cache_len)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"].to(dt))
+        o_lat = mla_latent_attention(q_lat, q_pe, cache["c_kv"],
+                                     cache["k_pe"], cache_len, scale)
+        o = torch.einsum("bshr,rhk->bshk", o_lat.to(dt),
+                         params["w_uv"].to(dt))
+    else:
+        k_nope = (c_kv @ params["w_uk"].to(dt).reshape(r, H * dn)).view(
+            B, S, H, dn)
+        v = (c_kv @ params["w_uv"].to(dt).reshape(r, H * dv)).view(
+            B, S, H, dv)
+        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)],
+                      dim=-1)
+        o = online_softmax_attention(
+            torch.cat([q_nope, q_pe], dim=-1), k,
+            torch.nn.functional.pad(v, (0, dn + dr - dv)),
+            causal=True, scale=scale)[..., :dv]
+    return o.reshape(B, S, H * dv) @ params["wo"].to(dt).reshape(H * dv, d)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: str = "bfloat16", device=None) -> dict:
+    """One MLA layer's zero cache ``{"c_kv" (batch, max_len, r), "k_pe"
+    (batch, max_len, dr)}`` on ``device`` (the CUDA card unless given)."""
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dt, device=dev),
+            "k_pe": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                dtype=dt, device=dev)}
+
+
+def abstract_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype: str = "bfloat16") -> dict:
+    """``init_mla_cache``'s shapes and dtypes as meta tensors (no
+    memory)."""
+    return init_mla_cache(cfg, batch, max_len, dtype, device="meta")

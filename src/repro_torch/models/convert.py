@@ -1,10 +1,12 @@
 """Carry weights across from the JAX package.
 
 The port keeps the JAX layouts (``wq (d,H,D)``, ``wk``/``wv (d,KV,D)``,
-``wo (H,D,d)``, MLP matrices ``(d_in, d_out)``, every segment stacked on a
+``wo (H,D,d)``, MLP matrices ``(d_in, d_out)``, a MoE layer's router
+``(d, E)`` and experts ``(E, d, F)`` / ``(E, F, d)``, MLA's ``w_dkv``,
+``w_kpe``, ``kv_norm``, ``w_uk``, ``w_uv``, every segment stacked on a
 leading layer axis under ``seg{i}_{kind}``), so carrying a parameter tree
-across is a copy, leaf for leaf, and checkpoint leaves match the JAX
-package's byte for byte.  Inputs are numpy arrays (``np.asarray`` of the
+(or a KV or MLA latent cache) across is a copy, leaf for leaf, and
+checkpoint leaves match the JAX package's byte for byte.  Inputs are numpy arrays (``np.asarray`` of the
 JAX leaves); bfloat16 arrays arrive as numpy's ml_dtypes bfloat16 and are
 moved by their bits.
 """

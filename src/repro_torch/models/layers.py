@@ -1,6 +1,6 @@
 """Shared neural layers (twin of ``repro.models.layers``): norms, rotary
-embeddings, MLPs, embeddings.  Layouts follow the JAX package: a weight
-matrix is ``(d_in, d_out)`` and applied as ``x @ W``."""
+embeddings (M-RoPE included), MLPs, embeddings.  Layouts follow the JAX
+package: a weight matrix is ``(d_in, d_out)`` and applied as ``x @ W``."""
 from __future__ import annotations
 
 import math
@@ -52,6 +52,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL), in float32: the D/2 frequency lanes are
+    split into temporal / height / width sections, each lane rotated by its
+    own position stream.
+
+    x: (B, S, H, D); positions: (3, B, S) int."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                 # (D/2,)
+    pos = positions.float()
+    ang, lo = [], 0
+    for stream, n in enumerate(sections):                # lanes [lo, lo + n)
+        ang.append(pos[stream][..., None] * inv[lo:lo + n])
+        lo += n
+    ang = torch.cat(ang, dim=-1)[:, :, None, :]          # (B, S, 1, D/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -84,14 +105,18 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), rounded after each op in bf16."""
+    return x * torch.sigmoid(x)
+
+
 def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
     dt = x.dtype
     if cfg.mlp_type in ("swiglu", "geglu"):
         g = x @ params["wi_gate"].to(dt)
         u = x @ params["wi_up"].to(dt)
-        # jax.nn.silu is x * sigmoid(x), rounded after each op in bf16
-        act = g * torch.sigmoid(g) if cfg.mlp_type == "swiglu" else _gelu(g)
+        act = silu(g) if cfg.mlp_type == "swiglu" else _gelu(g)
         return (act * u) @ params["wo"].to(dt)
     h = x @ params["wi"].to(dt)
     h = F.relu(h).square() if cfg.mlp_type == "relu2" else _gelu(h)

@@ -96,7 +96,9 @@ def materialize(seed: int, tree, param_dtype: str = "float32",
                 device=None) -> Dict:
     """Real parameters for a descriptor tree, drawn on ``device`` (the CUDA
     card unless given) from one generator seeded by ``seed`` (leaves in
-    sorted path order)."""
+    sorted path order), each straight into its own dtype: a bf16 leaf
+    takes no float32 copy of itself (moonshot-v1-16b-a3b's bf16 expert
+    leaves would need 35 GB more)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -106,9 +108,8 @@ def materialize(seed: int, tree, param_dtype: str = "float32",
             return torch.ones(p.shape, dtype=dt, device=device)
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dt, device=device)
-        x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
-                        device=device)
-        return x.mul_(p.std()).to(dt)
+        return torch.empty(p.shape, dtype=dt, device=device).normal_(
+            0.0, p.std(), generator=gen)
 
     out: Dict = {}
     for path, p in iter_leaves(tree):

@@ -1,4 +1,5 @@
-"""Decoder LM for the dense family (twin of ``repro.models.transformer``).
+"""Decoder LM for the dense, MoE and VLM families (twin of
+``repro.models.transformer``).
 
 Layer stacks are *segmented*: contiguous runs of identically-structured
 layers (gemma3's 5:1 local:global pattern gives nine) keep their parameters
@@ -11,8 +12,14 @@ The model is functional like the reference: ``forward``, ``loss_fn`` and
 ``decode_step`` take the parameter tree as an argument and never modify it,
 so a training step can be redone from the same parameters.  The KV cache
 is the reference's tree, ``{seg_name: {"k", "v"}}`` of (n, B, max_len, KV,
-D); ``decode_step`` writes it in place and returns the same tree (the
-reference returns a new one).
+D), or ``{seg_name: {"c_kv", "k_pe"}}`` under MLA; ``decode_step`` writes it
+in place and returns the same tree (the reference returns a new one).
+
+A MoE layer (every layer of a MoE config but its ``dense`` ones) replaces
+the MLP by ``models/moe.py``; the stack sums the layers' load-balance aux
+losses, which ``forward`` returns and ``loss_fn`` adds to the loss.  A VLM
+batch's ``patch_embeds`` replace the first token embeddings and its
+``mrope_positions`` (3, B, S) drive M-RoPE.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nnl
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.param import (count_params, materialize, norm_scale,
                                       stack_layers, torch_dtype)
 
@@ -57,28 +65,49 @@ def _window(cfg: ModelConfig, kind: str) -> int:
     return cfg.window_size if kind in ("local", "swa") else 0
 
 
+def _is_moe(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.is_moe and kind != "dense"
+
+
 # ---------------------------------------------------------------------------
 # one transformer layer
 # ---------------------------------------------------------------------------
-def describe_layer(cfg: ModelConfig) -> dict:
+def describe_layer(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
-    return {"ln_attn": norm_scale(d), "ln_mlp": norm_scale(d),
-            "attn": attn.describe_attention(cfg),
-            "mlp": nnl.describe_mlp(cfg, cfg.d_ff)}
+    desc = {"ln_attn": norm_scale(d), "ln_mlp": norm_scale(d),
+            "attn": attn.describe_attention(cfg)}
+    if _is_moe(cfg, kind):
+        desc["moe"] = moe_mod.describe_moe(cfg)
+    else:
+        desc["mlp"] = nnl.describe_mlp(cfg, cfg.d_ff)
+    return desc
 
 
 def apply_layer(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, kind: str, *, cache: Optional[dict] = None,
-                cache_len: Optional[int] = None) -> torch.Tensor:
-    """One layer; with ``cache`` (this layer's ``{"k", "v"}``) a decode
-    step that writes the cache in place."""
+                cache_len: Optional[int] = None,
+                mrope_positions: Optional[torch.Tensor] = None,
+                moe_impl: str = "dropping"
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer: (x, its aux loss, a float32 scalar, or None without a
+    MoE).  With ``cache`` (this layer's slice) a decode step that writes
+    the cache in place."""
     zero_c = cfg.family == "dense" and cfg.embed_scale   # gemma
     h = nnl.rms_norm(x, params["ln_attn"], cfg.norm_eps, zero_centered=zero_c)
-    x = x + attn.apply_attention(params["attn"], h, positions, cfg,
+    if cfg.use_mla:
+        a = attn.apply_mla(params["attn"], h, positions, cfg, cache=cache,
+                           cache_len=cache_len)
+    else:
+        a = attn.apply_attention(params["attn"], h, positions, cfg,
                                  window=_window(cfg, kind), cache=cache,
-                                 cache_len=cache_len)
+                                 cache_len=cache_len,
+                                 mrope_positions=mrope_positions)
+    x = x + a
     h = nnl.rms_norm(x, params["ln_mlp"], cfg.norm_eps, zero_centered=zero_c)
-    return x + nnl.apply_mlp(params["mlp"], h, cfg)
+    if _is_moe(cfg, kind):
+        m, aux = moe_mod.apply_moe(params["moe"], h, cfg, impl=moe_impl)
+        return x + m, aux
+    return x + nnl.apply_mlp(params["mlp"], h, cfg), None
 
 
 def _layer_slice(tree, j: int):
@@ -88,45 +117,61 @@ def _layer_slice(tree, j: int):
 
 
 def describe_stack(cfg: ModelConfig) -> dict:
-    return {f"seg{i}_{kind}": stack_layers(describe_layer(cfg), n)
+    return {f"seg{i}_{kind}": stack_layers(describe_layer(cfg, kind), n)
             for i, (kind, n) in enumerate(segments(cfg))}
 
 
 def apply_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, *, caches: Optional[dict] = None,
-                cache_len: Optional[int] = None) -> torch.Tensor:
-    """Run all segments.  ``caches``: ``{seg_name: {"k", "v"}}`` stacked
-    on the layer axis, each layer's slice written in place."""
+                cache_len: Optional[int] = None,
+                mrope_positions: Optional[torch.Tensor] = None,
+                moe_impl: str = "dropping"
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run all segments: (x, the MoE layers' summed aux loss, None without
+    a MoE layer: a dense stack adds no operation for it).  ``caches``:
+    ``{seg_name: {...}}`` stacked on the layer axis, each layer's slice
+    written in place."""
+    aux_total = None
+    kw = dict(mrope_positions=mrope_positions, moe_impl=moe_impl)
     for i, (kind, n) in enumerate(segments(cfg)):
         name = f"seg{i}_{kind}"
         seg = params[name]
         for j in range(n):
             p_j = _layer_slice(seg, j)
             if caches is not None:
-                x = apply_layer(p_j, x, positions, cfg, kind,
-                                cache=_layer_slice(caches[name], j),
-                                cache_len=cache_len)
+                x, aux = apply_layer(p_j, x, positions, cfg, kind,
+                                     cache=_layer_slice(caches[name], j),
+                                     cache_len=cache_len, **kw)
             elif cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(apply_layer, p_j, x, positions, cfg, kind,
-                               use_reentrant=False)
+                x, aux = checkpoint(apply_layer, p_j, x, positions, cfg,
+                                    kind, use_reentrant=False, **kw)
             else:
-                x = apply_layer(p_j, x, positions, cfg, kind)
-    return x
+                x, aux = apply_layer(p_j, x, positions, cfg, kind, **kw)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------
 # whole LM
 # ---------------------------------------------------------------------------
 class TransformerLM(nn.Module):
-    """Dense decoder LM; parameters are an explicit nested dict of tensors
-    in the JAX package's layout (see ``describe``)."""
+    """Dense / MoE / VLM decoder LM; parameters are an explicit nested dict
+    of tensors in the JAX package's layout (see ``describe``).  ``moe_impl``
+    picks the MoE dispatch (``models/moe.py``: ``"dropping"``, the
+    reference's default, ``"grouped"`` or ``"dense"``); the reference also
+    reads it from ``REPRO_MOE_IMPL``, the port from the argument only."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, moe_impl: str = "dropping"):
         super().__init__()
-        if cfg.family != "dense" or cfg.is_moe:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"TransformerLM builds the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
+        if moe_impl not in moe_mod.IMPLS:
+            raise ValueError(f"unknown MoE dispatch {moe_impl!r}; one of "
+                             f"{moe_mod.IMPLS}")
         self.cfg = cfg
+        self.moe_impl = moe_impl
 
     # ---- parameters -------------------------------------------------------
     def describe(self) -> dict:
@@ -143,41 +188,56 @@ class TransformerLM(nn.Module):
         return count_params(self.describe())
 
     # ---- forward ----------------------------------------------------------
-    def _trunk(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, params: dict, batch: dict
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The normalised final hidden states (B, S, d) and the aux loss.
+        A VLM batch's ``patch_embeds`` (B, P, d) replace the first P token
+        embeddings and its ``mrope_positions`` (3, B, S) drive M-RoPE."""
         cfg = self.cfg
+        tokens = batch["tokens"]
         x = nnl.embed_tokens(params["embed"], tokens, cfg)
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :]
-        x = apply_stack(params["stack"], x, positions, cfg)
+        mrope = None
+        if cfg.family == "vlm":
+            pe = batch.get("patch_embeds")
+            if pe is not None:
+                x = torch.cat([pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
+            mrope = batch.get("mrope_positions")
+        x, aux = apply_stack(params["stack"], x, positions, cfg,
+                             mrope_positions=mrope, moe_impl=self.moe_impl)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return nnl.rms_norm(x, params["ln_f"], cfg.norm_eps,
-                            zero_centered=cfg.embed_scale)
+                            zero_centered=cfg.embed_scale), aux
 
     def forward(self, params: dict, batch: dict
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits (B,S,V), aux_loss)."""
-        x = self._trunk(params, batch["tokens"])
-        logits = nnl.unembed(params["embed"], x, self.cfg)
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=logits.device)
+        x, aux = self._trunk(params, batch)
+        return nnl.unembed(params["embed"], x, self.cfg), aux
 
     def last_logits(self, params: dict, batch: dict) -> torch.Tensor:
         """``forward``'s logits at the last position only, (B, V): the
         trunk over the whole sequence, the unembedding of one row a
         sequence (the whole (B, S, V) logits would be 17 GiB in bf16 at
         S 32,768 and gemma3-1b's vocab)."""
-        x = self._trunk(params, batch["tokens"])
+        x, _ = self._trunk(params, batch)
         return nnl.unembed(params["embed"], x[:, -1], self.cfg)
 
     # ---- decode -----------------------------------------------------------
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
-                    cache_len: Union[int, torch.Tensor]
+                    cache_len: Union[int, torch.Tensor], *,
+                    mrope_positions: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, dict]:
         """tokens: (B, 1) new tokens; cache_len: the valid length, the new
         token included — an int, or a tensor (a scalar, or one a row whose
         first entry places the writes, as in the reference; reading a
-        tensor costs a host sync).  Returns (logits (B, 1, V), cache), the
-        cache written in place."""
+        tensor costs a host sync).  Under M-RoPE without
+        ``mrope_positions`` (3, B, 1) the three position streams advance
+        together (generated tokens are text).  Returns (logits (B, 1, V),
+        cache), the cache written in place."""
         cfg = self.cfg
         x = nnl.embed_tokens(params["embed"], tokens, cfg)
         if isinstance(cache_len, torch.Tensor):
@@ -187,8 +247,12 @@ class TransformerLM(nn.Module):
             positions = torch.full(tokens.shape, cache_len - 1,
                                    dtype=torch.int32, device=tokens.device)
             n = cache_len
-        x = apply_stack(params["stack"], x, positions.to(torch.int32), cfg,
-                        caches=cache, cache_len=n)
+        positions = positions.to(torch.int32)
+        if cfg.mrope and mrope_positions is None:
+            mrope_positions = positions[None].expand(3, *tokens.shape)
+        x, _ = apply_stack(params["stack"], x, positions, cfg, caches=cache,
+                           cache_len=n, mrope_positions=mrope_positions,
+                           moe_impl=self.moe_impl)
         x = nnl.rms_norm(x, params["ln_f"], cfg.norm_eps,
                          zero_centered=cfg.embed_scale)
         return nnl.unembed(params["embed"], x, cfg), cache
@@ -196,6 +260,11 @@ class TransformerLM(nn.Module):
     # ---- caches -----------------------------------------------------------
     def _cache_shape(self, batch: int, max_len: int):
         cfg = self.cfg
+        if cfg.use_mla:
+            axes = ("batch", "act_kv_seq", None)
+            return ({"c_kv": (batch, max_len, cfg.kv_lora_rank),
+                     "k_pe": (batch, max_len, cfg.qk_rope_head_dim)},
+                    {"c_kv": axes, "k_pe": axes})
         shp = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         axes = ("batch", "act_kv_seq", "kv", None)
         return {"k": shp, "v": shp}, {"k": axes, "v": axes}
@@ -225,11 +294,12 @@ class TransformerLM(nn.Module):
 
     def loss_fn(self, params: dict, batch: dict
                 ) -> Tuple[torch.Tensor, dict]:
-        x = self._trunk(params, batch["tokens"])
+        """Cross-entropy + z-loss + the MoE aux loss, and the metrics
+        (``aux_loss`` among them)."""
+        x, aux = self._trunk(params, batch)
         loss, metrics = chunked_ce_loss(params["embed"], x, batch["targets"],
                                         self.cfg,
                                         loss_mask=batch.get("loss_mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         total = loss + aux
         metrics["aux_loss"] = aux
         metrics["loss"] = total

@@ -23,6 +23,14 @@ def _value_and_grad(model, params, batch):
             {k: v.detach() for k, v in metrics.items()})
 
 
+def _batch_slice(name: str, v: torch.Tensor, i: int, n: int):
+    """The i-th of n equal slices of one batch input along its batch axis
+    (the second of ``mrope_positions``, the first of the others)."""
+    axis = 1 if name == "mrope_positions" else 0
+    size = v.shape[axis] // n
+    return v.narrow(axis, i * size, size)
+
+
 def make_train_step(model, optimizer: AdamW,
                     microbatches: int = 1) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -30,7 +38,11 @@ def make_train_step(model, optimizer: AdamW,
     and modifies none it is given.
 
     ``microbatches > 1`` accumulates float32 gradients over equal batch
-    slices in order and averages them; the metrics are the last slice's.
+    slices in order and averages them; the metrics are the last slice's
+    (``loss_fn``'s: the loss with the MoE aux loss added, ``aux_loss``,
+    ``ce``, ``z_loss``), with the optimizer's.  A VLM batch's
+    ``mrope_positions`` (3, B, S) are sliced on their batch axis (the
+    reference slices every input on its first axis, ROADMAP 3b).
     """
 
     def grads_of(params, batch):
@@ -40,8 +52,7 @@ def make_train_step(model, optimizer: AdamW,
                                              device=p.device), params)
         metrics = None
         for i in range(microbatches):
-            mb = {k: v[i * (v.shape[0] // microbatches):
-                       (i + 1) * (v.shape[0] // microbatches)]
+            mb = {k: _batch_slice(k, v, i, microbatches)
                   for k, v in batch.items()}
             g, metrics = _value_and_grad(model, params, mb)
             acc = build_tree(acc, lambda path: get_path(acc, path) +
@@ -61,7 +72,9 @@ def make_train_step(model, optimizer: AdamW,
 def make_prefill_step(model) -> Callable:
     """Full-sequence forward (inference-prefill shapes): returns the
     last-position logits (B, V), as the reference's step keeps
-    ``logits[:, -1]`` (here only that row is unembedded)."""
+    ``logits[:, -1]`` (here only that row is unembedded).  A VLM batch
+    carries its ``patch_embeds`` and ``mrope_positions`` beside the
+    tokens, as the reference's does."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
