@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one card: the burst-buffer data
 plane, fault-tolerant training of gemma3-1b with Proteus checkpoints,
-serving the dense configs, then the MoE and VLM families.
+serving the dense configs, the MoE and VLM families, then the recurrent,
+hybrid and audio families.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which must succeed or the run fails without a result line:
@@ -233,7 +234,39 @@ Phases, each of which must succeed or the run fails without a result line:
       checkpoint kernel launch of the launcher's save and of deepseek's
       save and restore held against its plain version on the same
       inputs, bit for bit; the peak device memory of each part, and one
-      ``{"families": ...}`` JSON line.
+      ``{"families": ...}`` JSON line;
+  (l) the recurrent, hybrid and audio families (phase k's state freed,
+      one model at a time), in bf16 as phase j, at full width and depth,
+      their parameter trees' sizes checked: xlstm-125m (mLSTM and sLSTM
+      blocks), hymba-1.5b (attention and Mamba heads, 128 meta tokens) and
+      whisper-base (encoder-decoder; 1500 seeded frames encoded at B 4 and
+      the cross cache filled from them with ``_xattn_kv``, which the
+      reference's serve path never does); each 16 prompt + 32 greedy
+      tokens at B 4 through ``make_serve_step`` (step time, tokens/s,
+      launches, syncs, busy time, idle share, beside a bytes bound of the
+      weights and the states read and written); teacher forcing under phase
+      j's gates for xLSTM and whisper (the count of decided rows reported;
+      with none the token check only reports); Hymba's decode, which
+      cannot reproduce ``forward`` (its meta tokens are never fed) but
+      computes ``forward`` with the meta tokens zeroed, at the per-layer
+      fan-in teacher-forced against that forward under phase j's gates and
+      held to the same steps in float64 on the card (float32 within
+      ``TF_TOL32`` of the largest logit, bf16 within ``BF16_RATIO`` times
+      the zero-meta bf16 forward's distance from its float64 run), the
+      reference init and the decode-vs-forward difference reported;
+      xLSTM's decode at B 128 (decode_32k's batch, 3.0 GB of state from
+      the seed) and prefill at S 4096, B 4; Hymba's long_500k (cache
+      524,288 + 128 at B 1, 21.5 GB from the seed) with a window layer's
+      ``decode_attention`` and ``_mamba_path``'s step against float64, and
+      prefill at S 4096 (+ 128), B 4; whisper's prefill_32k at B 4; no
+      kernel of the port launches on those paths; then ``launch/train.py
+      --full --arch xlstm-125m`` (one save), the ``examples/train_lm``
+      twin at 40 steps (its FailureLog and final step those of the JAX
+      example's loop, ``TRAIN_LM_EXPECTED``) and hymba-1.5b at full width
+      cut to 4 layers (three train steps at 4 × 1024, a save and a restore
+      bit for bit); every checkpoint kernel launch of these held against
+      its plain version on its own inputs, bit for bit; the peak device
+      memory of each part, and one ``{"recurrent": ...}`` JSON line.
 
 Before the last line it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -3680,6 +3713,15 @@ def phase_step_times(seed: int, train: dict) -> dict:
 # the MLP's activations at 32 x 32,768 tokens would not fit); the blocked
 # forms against the masked one at S 2048; gemma-7b and minitron-8b at full
 # width, teacher forcing over 1 x 64 tokens and 8 decode steps at B 8.
+# examples/train_lm's twin at 40 steps (reduced xlstm-125m, the example's
+# random failure plan: stragglers at 15 and 23, saves at 20 and 40): the
+# FailureLog and final step of the JAX example's loop on the CPU
+# (tests/test_torch_recurrent.py holds this pin to the JAX package)
+TRAIN_LM_STEPS = 40
+TRAIN_LM_EXPECTED = ({"crashes": 0, "stragglers": 2, "corruptions": 0,
+                      "restores": 0, "fallback_restores": 0,
+                      "redone_steps": [15, 23]}, 40)
+
 SERVE_ARCH = "gemma3-1b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 DECODE_CELLS = {"decode_32k": (32768, 32), "long_500k": (524288, 1)}
@@ -3728,57 +3770,73 @@ def _stack_leaves(params: dict):
     return [t for _, t in iter_leaves(params["stack"]) if t.ndim >= 3]
 
 
+# stacked leaves with an init of their own, which ``condition`` keeps: the
+# MoE router (std 0.02), Hymba's conv kernel (std 0.1) and A_log (log 1..N)
+OWN_INIT = ("router", "conv_w", "a_log")
+
+
 def condition(params: dict) -> None:
     """Rescale every stacked matrix in place from the stacked axis' fan-in
     to its per-layer fan-in, as the CPU tests do (ROADMAP Queue 3b: the
     reference init, which the port copies, draws them at the layer count's
     fan-in, and at full width gemma3's scores reach ~1.4e4, where one bf16
     ulp of q moves a score by more than the lead of the top key on some
-    rows): ``shape[1]``, an expert leaf (L, E, d_in, d_out) its
-    ``shape[2]``; the MoE router keeps its std of 0.02
-    (``tests/_model_families.py``)."""
+    rows; Hymba's one-layer segments draw them at std 1): ``shape[1]``, an
+    expert leaf (L, E, d_in, d_out) its ``shape[2]``; leaves with an init
+    of their own keep it (``OWN_INIT``, ``tests/_model_families.py``).
+    Unstacked trees (xLSTM's blocks, whisper's layers) are drawn at their
+    per-layer fan-in already and are left as they are."""
     from repro_torch.models.param import iter_leaves
-    for path, leaf in iter_leaves(params["stack"]):
-        if leaf.ndim >= 3 and path[-1] != "router":
+    for path, leaf in iter_leaves(params.get("stack", {})):
+        if leaf.ndim >= 3 and path[-1] not in OWN_INIT:
             fan = leaf.shape[2] if "moe" in path and leaf.ndim == 4 else \
                 leaf.shape[1]
             leaf.mul_(math.sqrt(leaf.shape[0] / fan))
 
 
-def prefill_logits(model, params: dict, tokens: torch.Tensor):
+def prefill_logits(model, params: dict, tokens: torch.Tensor,
+                   audio=None):
     """Float32 copies of the logits of every position of ``tokens`` (B, S)
     by the full forward (``make_prefill_step``'s), in the model's
-    activation dtype."""
+    activation dtype (whisper: over the frames ``audio``)."""
+    batch = {"tokens": tokens}
+    if audio is not None:
+        batch["audio_embeds"] = audio
     with torch.no_grad():
-        return model.forward(params, {"tokens": tokens})[0].float()
+        return model.forward(params, batch)[0].float()
 
 
-def decode_logits(model, params: dict, tokens: torch.Tensor):
-    """The same by S decode steps from a zero cache fed the tokens."""
+def decode_logits(model, params: dict, tokens: torch.Tensor, audio=None):
+    """The same by S decode steps from a fresh cache fed the tokens (its
+    length counting Hymba's meta tokens before them; whisper's cross cache
+    filled from ``audio``, ``fill_cross``)."""
     B, S = tokens.shape
-    cache = model.init_cache(B, S, dtype=model.cfg.dtype, device=DEVICE)
+    M = model.cfg.num_meta_tokens
+    cache = model.init_cache(B, M + S, dtype=model.cfg.dtype, device=DEVICE)
+    if audio is not None:
+        fill_cross(model, params, cache, audio)
     dec = None
-    for i in range(S):
-        lg, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
-                                      i + 1)
-        if dec is None:
-            dec = torch.empty((B, S, lg.shape[-1]), dtype=torch.float32,
-                              device=lg.device)
-        dec[:, i] = lg[:, 0].float()
+    with torch.no_grad():
+        for i in range(S):
+            lg, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
+                                          M + i + 1)
+            if dec is None:
+                dec = torch.empty((B, S, lg.shape[-1]), dtype=torch.float32,
+                                  device=lg.device)
+            dec[:, i] = lg[:, 0].float()
     return dec
 
 
 def teacher_forcing(cfg, params: dict, tokens: torch.Tensor,
-                    served_only: bool = False) -> dict:
-    """Decode against prefill over ``tokens``: as served (bf16
+                    served_only: bool = False, audio=None) -> dict:
+    """Decode against prefill over ``tokens`` (whisper: over the frames
+    ``audio``, its cross cache filled from them): as served (bf16
     activations) and, unless ``served_only``, with float32 activations on
-    the same bf16 params.  Decided rows: the float32 prefill's top-2
-    margin is at least twice the larger bf16 error, so that no such error
-    can flip their greedy token."""
+    the same bf16 params (``tf_summary``)."""
     from repro_torch.models.registry import build_model
     model = build_model(cfg)
-    pre = prefill_logits(model, params, tokens)
-    dec = decode_logits(model, params, tokens)
+    pre = prefill_logits(model, params, tokens, audio)
+    dec = decode_logits(model, params, tokens, audio)
     out = dict(rows=tokens.numel(), served=max_abs_err(dec, pre),
                max_logit=float(pre.abs().max()),
                tokens_agree=int((dec.argmax(-1) == pre.argmax(-1)).sum()),
@@ -3788,13 +3846,24 @@ def teacher_forcing(cfg, params: dict, tokens: torch.Tensor,
         out["greedy"] = dec.argmax(-1)
         return out
     model = build_model(dataclasses.replace(cfg, dtype="float32"))
-    pre32 = prefill_logits(model, params, tokens)
-    dec32 = decode_logits(model, params, tokens)
-    out.update(f32=max_abs_err(dec32, pre32), max_logit=float(
-        pre32.abs().max()), dec_vs_f32=max_abs_err(dec, pre32),
-        pre_vs_f32=max_abs_err(pre, pre32),
-        finite=out["finite"] and bool(torch.isfinite(pre32).all() and
-                                      torch.isfinite(dec32).all()))
+    return tf_summary(pre, dec, prefill_logits(model, params, tokens, audio),
+                      decode_logits(model, params, tokens, audio))
+
+
+def tf_summary(pre, dec, pre32, dec32) -> dict:
+    """Teacher forcing's statistics from the logits of bf16 prefill and
+    decode and of float32 prefill and decode (B, S, V): their distances,
+    the largest float32 logit, and the decided rows (the float32 prefill's
+    top-2 margin at least twice the larger bf16 error, so that no such
+    error can flip their greedy token) with those on which both bf16
+    sides' greedy tokens equal the float32 prefill's."""
+    out = dict(rows=pre.shape[0] * pre.shape[1], served=max_abs_err(dec, pre),
+               tokens_agree=int((dec.argmax(-1) == pre.argmax(-1)).sum()),
+               f32=max_abs_err(dec32, pre32), max_logit=float(
+                   pre32.abs().max()), dec_vs_f32=max_abs_err(dec, pre32),
+               pre_vs_f32=max_abs_err(pre, pre32),
+               finite=all(bool(torch.isfinite(t).all())
+                          for t in (pre, dec, pre32, dec32)))
     top2 = pre32.topk(2, dim=-1).values
     decided = top2[..., 0] - top2[..., 1] >= \
         2 * max(out["dec_vs_f32"], out["pre_vs_f32"])
@@ -3826,17 +3895,22 @@ def check_teacher_forcing(name: str, tf: dict) -> None:
           f"logits, bf16 prefill {tf['pre_vs_f32']}")
     check(tf["decided_agree"] == tf["decided"],
           f"{name}: greedy tokens differ on decided rows")
+    if not tf["decided"]:
+        log(f"[serve] {name}: no decided rows: the greedy-token check only "
+            f"reports")
 
 
 def decode_attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          cache_len: int, window: int, scale: float,
-                         groups: int) -> torch.Tensor:
+                         groups: int, sink_len: int = 0) -> torch.Tensor:
     """One-token attention against a (B, S, KV, D) cache in float64: the
     ``window`` positions ending at ``cache_len`` (every position below it
-    without a window), query head h on kv head h // groups."""
+    without a window) and the first ``sink_len`` positions before them,
+    query head h on kv head h // groups."""
     B, _, KV, D = k.shape
     lo = max(cache_len - window, 0) if window else 0
-    k, v = k[:, lo:cache_len].double(), v[:, lo:cache_len].double()
+    k, v = (torch.cat([t[:, :min(sink_len, lo)], t[:, lo:cache_len]],
+                      dim=1).double() for t in (k, v))
     qg = q.double().view(B, 1, KV, groups, D)
     s = torch.einsum("bqkgd,btkd->bkgqt", qg, k) * scale
     o = torch.einsum("bkgqt,btkd->bqkgd", torch.softmax(s, dim=-1), v)
@@ -4009,15 +4083,20 @@ def prefill_cell(cfg, model, params: dict, seed: int) -> dict:
                 flops=flops, tokens_per_s=B * S / ms * 1e3)
 
 
-def greedy_generation(cfg, model, params: dict, seed: int, bound=None):
+def greedy_generation(cfg, model, params: dict, seed: int, bound=None,
+                      meta: int = 0, prepare=None):
     """SERVE_PROMPT prompt tokens from the seed fed through the serve step,
     then SERVE_GEN greedy tokens; the step's time and profile beside
     ``bound(B, cache length, step)`` (default: ``decode_bound``, every
-    weight read)."""
+    weight read).  ``meta``: the positions before the tokens that the cache
+    length counts (Hymba's meta tokens); ``prepare(cache)`` fills the fresh
+    cache first (whisper's cross k and v)."""
     from repro_torch.train.train_step import make_serve_step
     B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
     serve = make_serve_step(model)
-    cache = model.init_cache(B, P + G, device=DEVICE)
+    cache = model.init_cache(B, meta + P + G, device=DEVICE)
+    if prepare is not None:
+        prepare(cache)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 4)
     prompt = torch.randint(1, cfg.vocab_size, (B, P), generator=gen,
                            device=DEVICE, dtype=torch.int32)
@@ -4025,7 +4104,7 @@ def greedy_generation(cfg, model, params: dict, seed: int, bound=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(P + G - 1):
-        nxt, cache = serve(params, cache, tok, i + 1)
+        nxt, cache = serve(params, cache, tok, meta + i + 1)
         if i + 1 < P:
             tok = prompt[:, i + 1:i + 2]
         else:
@@ -4034,14 +4113,16 @@ def greedy_generation(cfg, model, params: dict, seed: int, bound=None):
     tokens = torch.cat([prompt, torch.stack(out, 1)], dim=1)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    step_ms = host_ms(lambda: serve(params, cache, tok, P + G), 5)
-    prof = profile_call(f"serve step {cfg.name} (B {B}, cache {P + G})",
-                        lambda: serve(params, cache, tok, P + G))
+    L = meta + P + G
+
+    def step():
+        return serve(params, cache, tok, L)
+    step_ms = host_ms(step, 5)
+    prof = profile_call(f"serve step {cfg.name} (B {B}, cache {L})", step)
     if bound is None:
-        bound, by, _ = decode_bound(cfg, params, B, P + G)
+        bound, by, _ = decode_bound(cfg, params, B, L)
     else:
-        bound, by, _ = bound(B, P + G,
-                             lambda: serve(params, cache, tok, P + G))
+        bound, by, _ = bound(B, L, step)
     log(f"[serve] {cfg.name} greedy: {P} prompt + {G} tokens x batch {B} "
         f"in {wall:.1f} ms ({B * G / wall * 1e3:.1f} generated tokens/s); "
         f"one step {step_ms:.3f} ms (best of 5), {B / step_ms * 1e3:.1f} "
@@ -4212,7 +4293,9 @@ def phase_serve(seed: int, counters) -> dict:
 # through the deployment policy.
 FAMILY_MOE = ("deepseek-v2-lite-16b", "moonshot-v1-16b-a3b")
 FAMILY_VLM = "qwen2-vl-2b"
-FAMILY_TREES = {"deepseek-v2-lite-16b": 15_706_484_224,
+FAMILY_TREES = {"xlstm-125m": 155_651_408, "hymba-1.5b": 1_352_654_400,
+                "whisper-base": 87_465_984,
+                "deepseek-v2-lite-16b": 15_706_484_224,
                 "moonshot-v1-16b-a3b": 28_386_592_768,
                 "qwen2-vl-2b": 1_543_714_304}
 MLA_DECODE = ("decode_32k", 32768, 32)
@@ -4598,10 +4681,11 @@ def family_prefill(cfg, model, params: dict, seed: int, cell,
                    vlm: bool = False) -> dict:
     """``make_prefill_step`` at ``cell`` (name, S, B) from the seed: finite
     last logits, time (one call, after a probed one for a MoE) beside the
-    operations bound; the
-    VLM's batch with VLM_GRID² patch embeddings and their M-RoPE positions
-    (temporal 0, the grid's rows and columns; text after them advancing on
-    all three streams), and the dropped copies of a MoE prefill."""
+    operations bound (``recurrent_prefill_bound`` for the recurrent,
+    hybrid and audio families); the VLM's batch with VLM_GRID² patch
+    embeddings and their M-RoPE positions (temporal 0, the grid's rows and
+    columns; text after them advancing on all three streams), whisper's
+    with its frames, and the dropped copies of a MoE prefill."""
     from repro_torch.train.train_step import make_prefill_step
     name, S, B = cell
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
@@ -4619,6 +4703,8 @@ def family_prefill(cfg, model, params: dict, seed: int, cell,
         batch["patch_embeds"] = (0.02 * torch.randn(
             (B, n, cfg.d_model), generator=gen, device=DEVICE)).to(
             torch.bfloat16)
+    if cfg.family == "audio":
+        batch["audio_embeds"] = frames(cfg, B, seed)
     prefill = make_prefill_step(model)
     dropped = 0
     if cfg.is_moe:
@@ -4631,9 +4717,14 @@ def family_prefill(cfg, model, params: dict, seed: int, cell,
     check(last.shape == (B, cfg.padded_vocab) and
           bool(torch.isfinite(last).all()),
           f"{name}: last logits {tuple(last.shape)} not finite")
-    bound, by, flops = family_prefill_bound(cfg, params, B, S)
-    log(f"[family] {cfg.name} {name}: B {B} x {S} tokens"
-        f"{f' ({VLM_GRID ** 2} patch embeddings, M-RoPE)' if vlm else ''}, "
+    bound_of = recurrent_prefill_bound if cfg.family in RECURRENT_FAMILIES \
+        else family_prefill_bound
+    bound, by, flops = bound_of(cfg, params, B, S)
+    extra = f" ({VLM_GRID ** 2} patch embeddings, M-RoPE)" if vlm else \
+        f" (+ {cfg.num_meta_tokens} meta tokens)" if cfg.num_meta_tokens \
+        else f" over {cfg.encoder_seq} frames" if cfg.family == "audio" \
+        else ""
+    log(f"[family] {cfg.name} {name}: B {B} x {S} tokens{extra}, "
         f"finite last logits; {ms:.1f} ms (host clock, "
         f"{'the second call' if cfg.is_moe else 'one call'}), "
         f"{B * S / ms * 1e3:.0f} tokens/s; bound {bound:.3f} ms ({by}: "
@@ -4698,16 +4789,16 @@ class HeldAgainstPlain:
                     seconds=self.seconds)
 
 
-def family_launcher(counters) -> dict:
-    """``launch/train.py`` on qwen2-vl-2b at full width (``launch_training``
-    with VLM_LAUNCH_ARGS: the pipeline's VLM batch, patch embeddings and
-    M-RoPE positions, through the train step; one save of 18.5 GB, as the
-    host's 96 GiB hold beside the earlier phases' stores; its checkpoint
-    kernels ``HeldAgainstPlain``), then the freed host memory released for
-    the training part's save."""
+def family_launcher(counters, args=VLM_LAUNCH_ARGS,
+                    n_params: int = FAMILY_TREES[FAMILY_VLM]) -> dict:
+    """``launch/train.py`` at full width (``launch_training`` with ``args``,
+    a model of ``n_params``; by default qwen2-vl-2b: the pipeline's VLM
+    batch, patch embeddings and M-RoPE positions, through the train step;
+    one save of 18.5 GB, as the host's 96 GiB hold beside the earlier
+    phases' stores; its checkpoint kernels ``HeldAgainstPlain``), then the
+    freed host memory released for the training part's save."""
     with HeldAgainstPlain() as held:
-        out = launch_training(counters, VLM_LAUNCH_ARGS,
-                              FAMILY_TREES[FAMILY_VLM], max_saves=1)
+        out = launch_training(counters, args, n_params, max_saves=1)
     out["held"] = held.report()
     check(all(held.calls.values()), f"launcher: held {held.calls}")
     log(f"[family] launcher's checkpoint kernels held against their plain "
@@ -4721,9 +4812,12 @@ def family_launcher(counters) -> dict:
 
 
 def family_training(seed: int, route_counter, checksum_counter,
-                    per_leaf_counter) -> dict:
-    """deepseek-v2-lite-16b at full width cut to two layers (dense, moe):
-    FAMILY_TRAIN_STEPS train steps (finite loss and aux loss), one save of
+                    per_leaf_counter, name: str = FAMILY_MOE[0],
+                    kinds=FAMILY_TRAIN_KINDS) -> dict:
+    """``name`` (deepseek-v2-lite-16b unless given) at full width cut to
+    the layers ``kinds`` (deepseek's two: dense, moe): FAMILY_TRAIN_STEPS
+    train steps (finite loss; a MoE's aux loss finite and above 0), one
+    save of
     the state through ``CheckpointManager`` under the deployment policy
     (one routing and one checksum launch, as phases f and h), one restore
     (one routing launch, one checksum launch a group of leaves) equal to
@@ -4738,9 +4832,8 @@ def family_training(seed: int, route_counter, checksum_counter,
     from repro_torch.models.registry import build_model
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.train_step import make_train_step
-    cfg = dataclasses.replace(get_config(FAMILY_MOE[0]),
-                              num_layers=len(FAMILY_TRAIN_KINDS),
-                              layer_kinds=FAMILY_TRAIN_KINDS)
+    cfg = dataclasses.replace(get_config(name), num_layers=len(kinds),
+                              layer_kinds=kinds)
     model = build_model(cfg)
     n = model.param_count()
     params = model.init(seed, DEVICE)
@@ -4756,10 +4849,11 @@ def family_training(seed: int, route_counter, checksum_counter,
         t0 = time.perf_counter()
         params, opt_state, met = step(params, opt_state, batch)
         losses.append(float(met["loss"]))
-        aux.append(float(met["aux_loss"]))
+        aux.append(float(met.get("aux_loss", 0.0)))
         steps_ms.append((time.perf_counter() - t0) * 1e3)
     check(all(np.isfinite(losses)) and all(np.isfinite(aux)) and
-          all(a > 0 for a in aux), f"losses {losses}, aux losses {aux}")
+          (all(a > 0 for a in aux) or not cfg.is_moe),
+          f"losses {losses}, aux losses {aux}")
     state = (params, opt_state, torch.tensor(pipe.cursor(), dtype=torch.int32,
                                              device=DEVICE))
     state_gb = tree_bytes({"p": params, "m": opt_state.mu,
@@ -4793,7 +4887,7 @@ def family_training(seed: int, route_counter, checksum_counter,
         for (_, a), (_, b) in zip(flatten_state(restored),
                                   flatten_state(state)))
     check(got_step == FAMILY_TRAIN_STEPS and same,
-          "the restored deepseek state differs from the saved one")
+          f"the restored {name} state differs from the saved one")
     groups = int(state_gb * 1e9) // VERIFY_GROUP_BYTES + 1
     check(saved[route_counter.name] == 1 and
           saved[checksum_counter.name] == 1 and
@@ -4810,7 +4904,7 @@ def family_training(seed: int, route_counter, checksum_counter,
           f"{loaded}")
     leaves = len(flatten_state(state))
     log(f"[family] {cfg.name} cut to {cfg.num_layers} layers "
-        f"{FAMILY_TRAIN_KINDS}: {n:,} params, {state_gb:.2f} GB of float32 "
+        f"{kinds}: {n:,} params, {state_gb:.2f} GB of float32 "
         f"state; {FAMILY_TRAIN_STEPS} steps at {FAMILY_TRAIN_BATCH} x "
         f"{FAMILY_TRAIN_SEQ}: losses {['%.4f' % x for x in losses]}, aux "
         f"{['%.5f' % x for x in aux]}, {['%.1f' % x for x in steps_ms]} ms;"
@@ -4890,6 +4984,521 @@ def phase_families(seed: int, counters, route_counter, checksum_counter,
     out["peak_gib"] = peaks
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[family] phase k: peak device memory by part (GiB) "
+        f"{ {k: round(v, 2) for k, v in peaks.items()} }, launches "
+        f"{launches}, wall {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (l) the recurrent, hybrid and audio families: serving at full width,
+# training with BB checkpoints
+# ---------------------------------------------------------------------------
+# xlstm-125m (arXiv:2405.04517), hymba-1.5b (arXiv:2411.13676) and
+# whisper-base (arXiv:2212.04356) at full width under the reference's
+# serving dtypes, their parameter trees' sizes as the reference's
+# (tests/test_torch_recurrent.py, tests/test_torch_encdec.py), depth never
+# cut.  Cells: xLSTM's decode at decode_32k's batch (its state is O(1) in
+# length: no cut) and a prefill at S 4096, B 4 (prefill_32k cut: its sLSTM
+# is a per-token loop); Hymba's long_500k (cache 524,288 + 128 at B 1) and
+# a prefill at S 4096 + 128, B 4 (prefill_32k cut: a (B, S, di, N) float32
+# scan input is 13.5 GB at B 4 × 32,896 rows); whisper's prefill_32k, B 32
+# cut to 4, over 1500 frames.  Training: the launcher on xlstm-125m at full
+# width, the examples/train_lm twin (TRAIN_LM_EXPECTED) and hymba-1.5b at
+# full width cut to 4 layers (HYMBA_TRAIN_KINDS: 32 layers' activations do
+# not fit), each save and restore held against the kernels' plain versions.
+RECURRENT = ("xlstm-125m", "hymba-1.5b", "whisper-base")
+RECURRENT_FAMILIES = ("ssm", "hybrid", "audio")
+XLSTM_WIDE = ("decode_32k", 128)
+RECURRENT_PREFILL = ("prefill_4k", 4096, 4)
+HYMBA_LONG = ("long_500k", 524288, 1)
+WHISPER_PREFILL = ("prefill_32k", 32768, 4)
+HYMBA_TRAIN_KINDS = ("global", "swa", "swa", "global")
+XLSTM_LAUNCH_ARGS = ["--full", "--arch", RECURRENT[0]]
+SSM_OPS = 6      # float32 operations a (row, channel, state) of a Mamba step
+
+
+def frames(cfg, B: int, seed: int) -> torch.Tensor:
+    """Seeded whisper frame embeddings (B, encoder_seq, d), the stand-in
+    for the convolutional front end's output."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 20)
+    return torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device=DEVICE)
+
+
+def fill_cross(model, params: dict, cache: dict, audio: torch.Tensor):
+    """Whisper's cross k and v of every decoder layer from ``_xattn_kv`` of
+    ``encode``'s output, written into ``cache`` in place (the reference
+    zero-fills them and no serve path fills them, ROADMAP 3b)."""
+    from repro_torch.models.encdec import _xattn_kv
+    with torch.no_grad():
+        enc = model.encode(params, audio)
+        for i in range(model.cfg.num_layers):
+            c = cache[f"layer{i}"]
+            k, v = _xattn_kv(params["decoder"][f"layer{i}"]["xattn"], enc,
+                             model.cfg)
+            c["cross_k"].copy_(k)
+            c["cross_v"].copy_(v)
+
+
+def read_weights(cfg, params: dict):
+    """(matrix elements, embedding elements, bytes) of the weights one
+    decode step reads: every leaf but Hymba's meta tokens and whisper's
+    encoder, its cross k/v projections (the cross cache holds their
+    output) and all but one row of its learned positions."""
+    from repro_torch.models.param import iter_leaves
+    mm = emb = nbytes = 0
+    for path, t in iter_leaves(params):
+        if path[0] in ("meta_tokens", "encoder", "ln_enc") or (
+                path[-1] in ("wk", "wv", "bv") and "xattn" in path):
+            continue
+        n = t.shape[-1] if path[0] == "pos_dec" else t.numel()
+        nbytes += n * t.element_size()
+        if path[0] == "embed":
+            emb += n
+        elif t.ndim >= 2 and path[0] != "pos_dec":
+            mm += n
+    return mm, emb, nbytes
+
+
+def attended(cfg, L: int):
+    """Each attention layer's positions a decode step at cache length L
+    reads (a window layer: its window and the meta-token sinks before it;
+    whisper: the self cache and the 1500 cross positions)."""
+    if cfg.family == "hybrid":
+        M = cfg.num_meta_tokens
+        return [L if k == "global" else min(L, cfg.window_size + M)
+                for k in cfg.layer_kinds]
+    if cfg.family == "audio":
+        return [L + cfg.encoder_seq] * cfg.num_layers
+    return []
+
+
+def recurrent_state_ops(cfg, B: int, rows: int) -> float:
+    """Float32 operations of the recurrences over ``rows`` tokens a
+    sequence: an mLSTM head's memory update and readout (5·Dh² a token), an
+    sLSTM head's four recurrent products (8·Dh²), a Mamba channel's step
+    (SSM_OPS a state)."""
+    if cfg.family == "ssm":
+        di = int(cfg.proj_factor * cfg.d_model)
+        Dm, Ds = di // cfg.num_heads, cfg.d_model // cfg.num_heads
+        return sum(B * rows * cfg.num_heads *
+                   (8 * Ds * Ds if k == "slstm" else 5 * Dm * Dm)
+                   for k in cfg.layer_kinds)
+    if cfg.family == "hybrid":
+        di = cfg.num_heads * cfg.head_dim
+        return SSM_OPS * B * rows * di * cfg.ssm_state * cfg.num_layers
+    return 0.0
+
+
+def recurrent_decode_bound(cfg, params: dict, cache: dict, B: int, L: int):
+    """Least time of one decode step at cache length L: the weights read
+    (``read_weights``), the recurrent states read and written, each KV
+    position attended read and one written, the logits written; operations:
+    the weights' multiply-adds at the bf16 tensor peak, attention and the
+    recurrences in float32 at the SIMT peak."""
+    from repro_torch.models.param import iter_leaves
+    mm, emb, w_bytes = read_weights(cfg, params)
+    kv = cfg.num_kv_heads * cfg.head_dim * 2 * 2      # bf16 k and v a token
+    seen = attended(cfg, L)
+    state = sum(t.numel() * t.element_size() for p, t in iter_leaves(cache)
+                if not {"attn", "self", "cross_k", "cross_v"} & set(p))
+    nbytes = w_bytes + 2 * state + B * cfg.padded_vocab * 2 + \
+        B * kv * (sum(seen) + len(seen))
+    ops_mm = 2.0 * B * (mm + emb)
+    ops_f32 = 4.0 * B * cfg.num_heads * cfg.head_dim * sum(seen) + \
+        recurrent_state_ops(cfg, B, 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops_mm / BF16_TENSOR_OPS_PER_S + ops_f32 / SIMPLE_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def recurrent_prefill_bound(cfg, params: dict, B: int, S: int):
+    """Least time of the prefill step over S tokens (Hymba: S + 128 rows;
+    whisper: and the encoder over its 1500 frames): the matrices'
+    multiply-adds over every row (the unembedding over the last token
+    only) at the bf16 tensor peak; in float32 at the SIMT peak the
+    attention's over the (query, key) pairs its masks keep and the
+    recurrences (``recurrent_state_ops``); bytes: the weights, tokens and
+    logits once."""
+    from repro_torch.models.param import iter_leaves
+    emb = cfg.padded_vocab * cfg.d_model
+    HD = cfg.num_heads * cfg.head_dim
+    rows = S + cfg.num_meta_tokens
+    mm = 2.0 * B * emb
+    attn = recurrent_state_ops(cfg, B, rows)
+    for path, t in iter_leaves(params):
+        if t.ndim < 2 or path[0] in ("embed", "pos_dec", "meta_tokens"):
+            continue
+        if path[0] == "encoder" or (path[-1] in ("wk", "wv") and
+                                    "xattn" in path):
+            mm += 2.0 * B * cfg.encoder_seq * t.numel()
+        else:
+            mm += 2.0 * B * rows * t.numel()
+    if cfg.family == "ssm":        # mLSTM chunks: causal pairs, q·k and s·v
+        di = int(cfg.proj_factor * cfg.d_model)
+        L = 64
+        attn += sum(4.0 * B * cfg.num_heads * (di // cfg.num_heads) *
+                    (S // L) * L * (L + 1) // 2
+                    for k in cfg.layer_kinds if k == "mlstm")
+    elif cfg.family == "hybrid":
+        W, M = cfg.window_size, cfg.num_meta_tokens
+        for k in cfg.layer_kinds:
+            pairs = rows * (rows + 1) // 2 if k == "global" else \
+                (W + 1) * rows - W * (W + 1) // 2 + \
+                M * max(rows - W - M, 0)
+            attn += 4.0 * B * HD * pairs
+    else:
+        E = cfg.encoder_seq
+        attn += 4.0 * B * HD * (cfg.encoder_layers * E * E + cfg.num_layers *
+                                (S * (S + 1) // 2 + S * E))
+    t_ops = (mm / BF16_TENSOR_OPS_PER_S + attn / SIMPLE_OPS_PER_S) * 1e3
+    t_bytes = (tree_bytes(params) + B * S * 4 + B * cfg.padded_vocab * 2) \
+        / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), mm + attn
+
+
+def l_runs(cfg, params: dict, tokens: torch.Tensor, runs) -> dict:
+    """``{(side, dtype): logits}`` for each (side, dtype) of ``runs``:
+    side "pre" ``prefill_logits``, "dec" ``decode_logits``, each dtype's
+    model built once."""
+    from repro_torch.models.registry import build_model
+    out, models = {}, {}
+    for side, dtype in runs:
+        if dtype not in models:
+            models[dtype] = build_model(dataclasses.replace(cfg, dtype=dtype))
+        fn = decode_logits if side == "dec" else prefill_logits
+        out[side, dtype] = fn(models[dtype], params, tokens)
+    return out
+
+
+def zero_meta(params: dict) -> dict:
+    """Hymba's parameters with the meta tokens zeroed (the other leaves
+    shared)."""
+    return dict(params, meta_tokens=torch.zeros_like(params["meta_tokens"]))
+
+
+def hymba_reference_init(cfg, params: dict, tokens: torch.Tensor) -> dict:
+    """Reported at the reference init, served (bf16): the decode steps'
+    distance from the forward with zero meta tokens (the same function,
+    ``hymba_teacher_forcing``) and from the forward with them (the
+    reference's fault)."""
+    lg = l_runs(cfg, params, tokens, [("dec", "bfloat16"),
+                                      ("pre", "bfloat16")])
+    zero = l_runs(cfg, zero_meta(params), tokens, [("pre", "bfloat16")])
+    out = dict(rows=tokens.numel(), max_logit=float(
+        lg["pre", "bfloat16"].abs().max()),
+        vs_zero_meta=max_abs_err(lg["dec", "bfloat16"],
+                                 zero["pre", "bfloat16"]),
+        fault=max_abs_err(lg["dec", "bfloat16"], lg["pre", "bfloat16"]))
+    log(f"[recurrent] {cfg.name} at the reference init (reported, bf16, "
+        f"{out['rows']} positions): max |decode - forward with zero meta "
+        f"tokens| {out['vs_zero_meta']:.5f}, max |decode - forward| "
+        f"{out['fault']:.4f} (the missing meta tokens) of max |logit| "
+        f"{out['max_logit']:.4f}")
+    return out
+
+
+def hymba_teacher_forcing(cfg, params: dict, tokens: torch.Tensor) -> dict:
+    """Hymba's decode never feeds the meta tokens (ROADMAP 3b): their cache
+    slots stay zero and the SSM starts from zero, so it does not reproduce
+    ``forward``.  It computes exactly ``forward`` with the meta tokens
+    zeroed (zero rows stay zero through every layer: no biases, a zero
+    conv bias, RMS norms of zero; their k, v and SSM state are zero), the
+    float32 identity held on the CPU
+    (``tests/test_torch_recurrent.py::test_decode_equals_forward_without_meta_tokens``).
+    So decode is held (1) by phase j's teacher forcing against that forward (``tf_summary``,
+    ``check_teacher_forcing``), and (2) against the same steps in float64
+    on the card: the float32 steps within TF_TOL32 of the largest float64
+    logit, the bf16 steps within BF16_RATIO times the bf16 forward's
+    distance from the float64 forward, both forwards with the meta tokens
+    zeroed (the same function as decode; beside it the distance of the
+    bf16 forward with its meta tokens is reported).  Norms, softmax and
+    the scan compute in float32 whatever the activations' dtype (as the
+    reference's), so the float64 runs differ from the float32 ones in the
+    products and the residual stream only.  The decode-vs-forward
+    difference the fault causes is reported, in float32."""
+    check(cfg.num_meta_tokens + tokens.shape[1] <= cfg.window_size,
+          "decode against forward beyond the window would meet the "
+          "reference's decode/prefill window mismatch (ROADMAP 3b)")
+    dtypes = ("bfloat16", "float32", "float64")
+    lg = l_runs(cfg, params, tokens, [("dec", d) for d in dtypes] +
+                [("pre", d) for d in dtypes])
+    lg.update({("zero", d): v for (_, d), v in l_runs(
+        cfg, zero_meta(params), tokens, [("pre", d) for d in dtypes]).items()})
+
+    def err(a, b):
+        return max_abs_err(lg[a], lg[b])
+    out = dict(tf=tf_summary(lg["zero", "bfloat16"], lg["dec", "bfloat16"],
+                             lg["zero", "float32"], lg["dec", "float32"]),
+               max_logit=float(lg["dec", "float64"].abs().max()),
+               f32_vs_f64=err(("dec", "float32"), ("dec", "float64")),
+               dec_vs_f64=err(("dec", "bfloat16"), ("dec", "float64")),
+               zero_vs_f64=err(("zero", "bfloat16"), ("zero", "float64")),
+               pre_vs_f64=err(("pre", "bfloat16"), ("pre", "float64")),
+               fault=err(("dec", "float32"), ("pre", "float32")),
+               fault_max_logit=float(lg["pre", "float32"].abs().max()),
+               finite=all(bool(torch.isfinite(t).all()) for t in lg.values()))
+    log(f"[recurrent] {cfg.name} decode held against float64 on the card "
+        f"over {tokens.numel()} positions: float32 steps "
+        f"{out['f32_vs_f64']:.3e} ({out['f32_vs_f64'] / out['max_logit']:.2e}"
+        f" of max |logit| {out['max_logit']:.4f}); bf16 steps "
+        f"{out['dec_vs_f64']:.5f} from float64, the bf16 forward with zero "
+        f"meta tokens {out['zero_vs_f64']:.5f} from its float64 run (with "
+        f"its meta tokens {out['pre_vs_f64']:.5f}); the reference's missing "
+        f"meta tokens: float32 max |decode - forward| {out['fault']:.4f} of "
+        f"max |logit| {out['fault_max_logit']:.4f} (reported)")
+    check_teacher_forcing(f"{cfg.name} (forward with zero meta tokens)",
+                          out["tf"])
+    check(out["finite"], f"{cfg.name}: non-finite logits")
+    check(out["f32_vs_f64"] <= TF_TOL32 * out["max_logit"],
+          f"{cfg.name}: float32 decode is {out['f32_vs_f64']} from float64")
+    check(out["dec_vs_f64"] <= BF16_RATIO * out["zero_vs_f64"],
+          f"{cfg.name}: bf16 decode is {out['dec_vs_f64']} from float64, "
+          f"the bf16 forward with zero meta tokens {out['zero_vs_f64']}")
+    return out
+
+
+def l_state_cell(cfg, model, params: dict, name: str, B: int, L: int,
+                 seed: int) -> dict:
+    """One serve step against a cache (states, KV) filled from the seed at
+    cache length L: its time (best of 3) and profile beside its bound."""
+    from repro_torch.train.train_step import make_serve_step
+    serve = make_serve_step(model)
+    cache = model.init_cache(B, L, device=DEVICE)
+    fill_cache(cache, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 21)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    nxt, _ = serve(params, cache, tok, L)
+    check(nxt.shape == (B,) and bool(((0 <= nxt) &
+                                      (nxt < cfg.padded_vocab)).all()),
+          f"{name}: greedy tokens out of range")
+    step_ms = host_ms(lambda: serve(params, cache, tok, L), 3)
+    prof = profile_call(f"serve step {cfg.name} {name} (B {B}, cache {L})",
+                        lambda: serve(params, cache, tok, L))
+    bound, by, nbytes = recurrent_decode_bound(cfg, params, cache, B, L)
+    gib = tree_bytes(cache) / 2 ** 30
+    log(f"[recurrent] {cfg.name} {name}: B {B}, cache length {L} ({gib:.2f}"
+        f" GiB of state and cache); step {step_ms:.3f} ms (best of 3), "
+        f"device busy {prof['busy_ms']:.3f} ms; bound {bound:.4f} ms ({by},"
+        f" {nbytes / 1e9:.3f} GB), {bound / prof['busy_ms']:.3f} of it busy")
+    return cache, dict(batch=B, cache_len=L, state_gib=gib, step_ms=step_ms,
+                       busy_ms=prof["busy_ms"], idle=prof["idle"],
+                       launches=prof["launches"], syncs=prof["syncs"],
+                       bound_ms=bound, bound_by=by, bound_bytes=nbytes,
+                       tokens_per_s=B / step_ms * 1e3)
+
+
+def mamba_decode_f64(cfg, p: dict, h: torch.Tensor, conv: torch.Tensor,
+                     ssm: torch.Tensor):
+    """``hymba._mamba_path``'s one-token step in float64 from the same
+    inputs: (output (B, 1, d), new SSM state)."""
+    F = torch.nn.functional
+    di, N = cfg.num_heads * cfg.head_dim, cfg.ssm_state
+    h, conv = h.double(), conv.double()
+    xz = h @ p["w_xz"].double()
+    xs, z = xz[..., :di], xz[..., di:]
+    win = torch.cat([conv, xs], dim=1)                       # (B, K, di)
+    xc = F.silu((win * p["conv_w"].double()).sum(1, keepdim=True) +
+                p["conv_b"].double())
+    bc = xc @ p["w_bc"].double()
+    delta = F.softplus(xc @ p["w_dt1"].double() @ p["w_dt2"].double() +
+                       p["b_dt"].double())[:, 0]             # (B, di)
+    A = -torch.exp(p["a_log"].double())
+    new = torch.exp(delta[..., None] * A) * ssm.double() + \
+        (delta * xc[:, 0])[..., None] * bc[:, 0, None, :N]
+    y = (new * bc[:, 0, None, N:]).sum(-1) + p["d_skip"].double() * xc[:, 0]
+    return (y[:, None] * F.silu(z)) @ p["w_ssm_out"].double(), new
+
+
+def hymba_long_checks(cfg, params: dict, cache: dict, seed: int) -> dict:
+    """On long_500k's filled cache: a sliding-window layer's
+    ``decode_attention`` (window and meta-token sinks at the cache's end)
+    and ``_mamba_path``'s decode step (output and SSM state) against
+    float64, both within ATTN_TOL's bf16 2e-2 of their largest value."""
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.hymba import _mamba_path
+    from repro_torch.models.transformer import _layer_slice
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 22)
+    c = _layer_slice(cache["seg1_swa"], 0)
+    p = _layer_slice(params["stack"]["seg1_swa"], 0)
+    B, L = c["attn"]["k"].shape[:2]
+    G = cfg.num_heads // cfg.num_kv_heads
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    M = cfg.num_meta_tokens
+    q = torch.randn((B, 1, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    got = decode_attention(q, c["attn"]["k"], c["attn"]["v"], L,
+                           window=cfg.window_size, scale=scale, groups=G,
+                           sink_len=M)
+    want = decode_attention_f64(q, c["attn"]["k"], c["attn"]["v"], L,
+                                cfg.window_size, scale, G, sink_len=M)
+    err = {"swa_attention": max_abs_err(got, want) /
+           float(want.abs().max())}
+    h = torch.randn((B, 1, cfg.d_model), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    state = {"conv": c["conv"].clone(), "ssm": c["ssm"].clone()}
+    want_out, want_ssm = mamba_decode_f64(cfg, p, h, state["conv"],
+                                          state["ssm"])
+    with torch.no_grad():
+        out = _mamba_path(p, h, cfg, state)
+    err["mamba_out"] = max_abs_err(out, want_out) / float(
+        want_out.abs().max())
+    err["mamba_state"] = max_abs_err(state["ssm"], want_ssm) / float(
+        want_ssm.abs().max())
+    for k, e in err.items():
+        check(e <= ATTN_TOL[torch.bfloat16],
+              f"{cfg.name} long_500k: {k} is {e} of its largest from float64")
+    log(f"[recurrent] {cfg.name} long_500k against float64 (of the largest "
+        f"value): window layer's decode_attention (window {cfg.window_size},"
+        f" {M} sinks) {err['swa_attention']:.2e}; _mamba_path decode step: "
+        f"output {err['mamba_out']:.2e}, SSM state {err['mamba_state']:.2e}")
+    return err
+
+
+def l_serving(name: str, seed: int, part_done) -> dict:
+    """One model of phase l (module docstring), its parts' peaks through
+    ``part_done``."""
+    cfg, model, params = family_model(name, seed)
+    out = {"params": model.param_count(),
+           "param_gb": tree_bytes(params) / 1e9}
+    M = cfg.num_meta_tokens
+    audio, prepare = None, None
+    if cfg.family == "audio":
+        audio = frames(cfg, SERVE_BATCH, seed).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            enc = model.encode(params, audio)
+        torch.cuda.synchronize()
+        out["encode_ms"] = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(enc).all()), "encoder output not finite")
+        log(f"[recurrent] {name}: encode {cfg.encoder_seq} frames at B "
+            f"{SERVE_BATCH}: {out['encode_ms']:.1f} ms (host clock, first "
+            f"call), finite; the cross cache filled from it (_xattn_kv)")
+        del enc
+
+        def prepare(cache):
+            fill_cross(model, params, cache, audio)
+
+    def bound(B, L, step):
+        cache = model.init_cache(B, L, device="meta")
+        return recurrent_decode_bound(cfg, params, cache, B, L)
+
+    tokens, out["greedy"] = greedy_generation(cfg, model, params, seed,
+                                              bound=bound, meta=M,
+                                              prepare=prepare)
+    if cfg.family == "hybrid":
+        out["tf_reference_init"] = hymba_reference_init(cfg, params, tokens)
+        condition(params)
+        out["tf"] = hymba_teacher_forcing(cfg, params, tokens)
+    else:
+        out["tf"] = teacher_forcing(cfg, params, tokens, audio=audio)
+        check_teacher_forcing(name, out["tf"])
+    part_done(name)
+    if cfg.family == "ssm":
+        cell, B = XLSTM_WIDE
+        _, out[cell] = l_state_cell(cfg, model, params, cell, B, 1, seed)
+        part_done(f"{name} {cell}")
+    if cfg.family == "hybrid":
+        cell, L, B = HYMBA_LONG
+        cache, out[cell] = l_state_cell(cfg, model, params, cell, B, L + M,
+                                        seed)
+        out[cell]["err"] = hymba_long_checks(cfg, params, cache, seed)
+        del cache
+        part_done(f"{name} {cell}")
+    cell = WHISPER_PREFILL if cfg.family == "audio" else RECURRENT_PREFILL
+    out[cell[0]] = family_prefill(cfg, model, params, seed, cell)
+    part_done(f"{name} {cell[0]}")
+    return out
+
+
+def train_lm_example(counters) -> dict:
+    """``repro_torch.examples.train_lm`` on the card at TRAIN_LM_STEPS
+    steps (reduced xlstm-125m, the example's failure plan and checkpoint
+    interval): its four lines, and the FailureLog and final step the JAX
+    example's loop gives under the same plan (TRAIN_LM_EXPECTED); its
+    checkpoint kernels ``HeldAgainstPlain``."""
+    import contextlib
+    import io
+    from repro_torch.examples import train_lm
+    for c in counters:
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with HeldAgainstPlain() as held, contextlib.redirect_stdout(buf):
+        res = train_lm.main(["--steps", str(TRAIN_LM_STEPS)])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[recurrent] train_lm on the card: {line}")
+    launches = {c.name: c.launches for c in counters}
+    log_, step = TRAIN_LM_EXPECTED
+    check(len(lines) == 4 and lines[0].startswith("[proteus] ") and
+          lines[1].startswith("[failure-plan] 2 injected events: "),
+          f"train_lm printed {lines}")
+    check(dataclasses.asdict(res.failure_log) == log_ and
+          res.final_step == step and all(np.isfinite(res.losses)),
+          f"train_lm: FailureLog {res.failure_log}, step {res.final_step}")
+    check(all(launches.values()) and held.calls == launches,
+          f"train_lm: launches {launches}, held {held.calls}")
+    return dict(wall_s=wall, launches=launches, held=held.report(),
+                losses=[res.losses[0], res.losses[-1]])
+
+
+def phase_recurrent(seed: int, counters, route_counter, checksum_counter,
+                    per_leaf_counter) -> dict:
+    """Phase l (module docstring).  ``counters``: every kernel wrapper's
+    launch count; the serving parts launch none, the training parts only
+    the two checkpoint kernels, whose launches are returned."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_host_memory()
+    t_phase = time.perf_counter()
+    peaks, out = {}, {}
+
+    def part_done(name: str) -> None:
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def moved(among, before):
+        return {c.name: c.launches - before[c.name] for c in among
+                if c.launches != before[c.name]}
+
+    torch.cuda.reset_peak_memory_stats()
+    before = {c.name: c.launches for c in counters}
+    for name in RECURRENT:
+        out[name] = l_serving(name, seed, part_done)
+    check(not moved(counters, before), f"kernels launched on the serving "
+                                       f"path: {moved(counters, before)}")
+    ckpt = (route_counter, checksum_counter)
+    others = [c for c in counters if c not in ckpt]
+    before = {c.name: c.launches for c in others}
+    out["launcher"] = family_launcher((checksum_counter, route_counter),
+                                      XLSTM_LAUNCH_ARGS,
+                                      FAMILY_TREES[RECURRENT[0]])
+    part_done("launcher")
+    out["train_lm"] = train_lm_example(ckpt)
+    part_done("train_lm")
+    out["training"] = family_training(seed, route_counter, checksum_counter,
+                                      per_leaf_counter, RECURRENT[1],
+                                      HYMBA_TRAIN_KINDS)
+    part_done("training")
+    check(not moved(others, before), f"phase l's training launched "
+                                     f"{moved(others, before)}")
+    tr = out["training"]
+    launches = {c.name: out["launcher"]["launches"][c.name] +
+                out["train_lm"]["launches"][c.name] +
+                tr["save_launches"][c.name] + tr["restore_launches"][c.name]
+                for c in ckpt}
+    out["launches"] = launches
+    out["peak_gib"] = peaks
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[recurrent] phase l: peak device memory by part (GiB) "
         f"{ {k: round(v, 2) for k, v in peaks.items()} }, launches "
         f"{launches}, wall {out['wall_s']:.3f} s")
     return out
@@ -4998,6 +5607,15 @@ def main() -> int:
         for name, n in fam["launches"].items():
             launches[name] += n
         log(json.dumps({"families": fam}))
+        del fam
+        phase = "recurrent"
+        rec = phase_recurrent(args.seed, counters + ckpt_counters + (
+            DEST_HISTOGRAM2D, FLETCHER, FLASH_ATTENTION, FLASH_ATTENTION_F32,
+            FLASH_ATTENTION_WIDE, DEST_HISTOGRAM), ROUTE_CHUNKS_SEGMENTED,
+            FLETCHER_SEGMENTED, FLETCHER)
+        for name, n in rec["launches"].items():
+            launches[name] += n
+        log(json.dumps({"recurrent": rec}))
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -227,12 +227,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 # full GQA attention layer
 # ---------------------------------------------------------------------------
-def project_heads(params: dict, x: torch.Tensor, positions: torch.Tensor,
+def project_heads(params: dict, x: torch.Tensor,
+                  positions: Optional[torch.Tensor],
                   cfg: ModelConfig,
                   mrope_positions: Optional[torch.Tensor] = None):
     """(B, S, d) → q (B, S, H, D), k and v (B, S, KV, D) in x's dtype: the
     projections, the qkv biases, RoPE on q and k (M-RoPE where the config
-    has it and ``mrope_positions`` (3, B, S) are given)."""
+    has it and ``mrope_positions`` (3, B, S) are given; none when
+    ``positions`` is None, as the reference's whisper decoder passes)."""
     B, S, d = x.shape
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -248,11 +250,14 @@ def project_heads(params: dict, x: torch.Tensor, positions: torch.Tensor,
                             cfg.mrope_sections),
                 apply_mrope(k, mrope_positions, cfg.rope_theta,
                             cfg.mrope_sections), v)
+    if positions is None:                   # learned positions (whisper)
+        return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
+def project_qkv(params: dict, x: torch.Tensor,
+                positions: Optional[torch.Tensor],
                 cfg: ModelConfig,
                 mrope_positions: Optional[torch.Tensor] = None):
     """``project_heads`` with k and v GQA-expanded to (B, S, H, D)."""
@@ -278,7 +283,8 @@ def write_cache(cache: dict, new: dict, cache_len: int) -> None:
         leaf[:, idx:idx + n] = rows
 
 
-def apply_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
+def apply_attention(params: dict, x: torch.Tensor,
+                    positions: Optional[torch.Tensor],
                     cfg: ModelConfig, *, window: int = 0,
                     cache: Optional[dict] = None,
                     cache_len: Optional[int] = None,

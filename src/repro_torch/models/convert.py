@@ -4,11 +4,12 @@ The port keeps the JAX layouts (``wq (d,H,D)``, ``wk``/``wv (d,KV,D)``,
 ``wo (H,D,d)``, MLP matrices ``(d_in, d_out)``, a MoE layer's router
 ``(d, E)`` and experts ``(E, d, F)`` / ``(E, F, d)``, MLA's ``w_dkv``,
 ``w_kpe``, ``kv_norm``, ``w_uk``, ``w_uv``, every segment stacked on a
-leading layer axis under ``seg{i}_{kind}``), so carrying a parameter tree
-(or a KV or MLA latent cache) across is a copy, leaf for leaf, and
-checkpoint leaves match the JAX package's byte for byte.  Inputs are numpy arrays (``np.asarray`` of the
-JAX leaves); bfloat16 arrays arrive as numpy's ml_dtypes bfloat16 and are
-moved by their bits.
+leading layer axis under ``seg{i}_{kind}``; xLSTM's, Hymba's and the
+encoder-decoder's trees as the reference lays them out), so carrying a
+parameter tree (or a KV, MLA latent or recurrent-state cache) across is a
+copy, leaf for leaf, and checkpoint leaves match the JAX package's byte for
+byte.  Inputs are numpy arrays (``np.asarray`` of the JAX leaves); bfloat16
+arrays arrive as numpy's ml_dtypes bfloat16 and are moved by their bits.
 """
 from __future__ import annotations
 
@@ -44,16 +45,18 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def from_jax_params(tree: Dict, device=None) -> Dict:
-    """A JAX parameter tree (nested dict of numpy arrays) as the port's, on
-    ``device`` (the CUDA card unless given)."""
+    """A JAX parameter tree (nested dicts and tuples of numpy arrays) as
+    the port's, on ``device`` (the CUDA card unless given)."""
     device = resolve_device(device)
     return map_tree(lambda a: tensor_from_numpy(a, device), tree)
 
 
 def from_jax_cache(tree: Dict, device=None) -> Dict:
-    """A JAX KV-cache tree (``{seg_name: {"k", "v"}}`` of numpy, from
-    ``TransformerLM.init_cache`` or a decode step) as the port's, on
-    ``device`` (the CUDA card unless given): the same tree, leaf for leaf."""
+    """A JAX cache tree of numpy (``TransformerLM``'s ``{seg_name: {"k",
+    "v"}}``, Hymba's and the encoder-decoder's nested dicts, xLSTM's
+    recurrent states with their ``(C, n, m)`` and ``(c, n, m, h)`` tuples;
+    from ``init_cache`` or a decode step) as the port's, on ``device`` (the
+    CUDA card unless given): the same tree, leaf for leaf."""
     return from_jax_params(tree, device)
 
 

@@ -27,6 +27,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return (y * s).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm computed in float32 (the population variance), as the
+    reference's; no model calls it."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * scale + b).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -71,6 +82,17 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed (n, d) float32 table: sines then cosines of
+    ``pos * 10000^(-i / max(d/2 - 1, 1))``, i < d/2 (the reference's
+    denominator)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)
+    inv = torch.exp(-math.log(10000.0) * i / max(d // 2 - 1, 1))
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

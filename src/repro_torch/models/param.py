@@ -34,9 +34,13 @@ class P:
     """One parameter leaf descriptor."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"          # "normal" (fan-in scaled) | "ones" | "zeros"
+    # "normal" (std ``stddev``, else fan-in scaled) | "ones" | "zeros" |
+    # "const" (every element ``value``) | "log_arange" (log(1..N) along
+    # the last axis, broadcast over the others: mamba's A_log)
+    init: str = "normal"
     dtype: Optional[str] = None   # override of the param dtype
     stddev: Optional[float] = None
+    value: Optional[float] = None
 
     def std(self) -> float:
         if self.stddev is not None:
@@ -56,25 +60,33 @@ def norm_scale(d: int) -> P:
 def stack_layers(tree, n: int):
     """Prepend a 'layers' dim of ``n`` to every leaf of a per-layer tree."""
     if isinstance(tree, P):
-        return P((n,) + tree.shape, tree.init, tree.dtype, tree.stddev)
+        return P((n,) + tree.shape, tree.init, tree.dtype, tree.stddev,
+                 tree.value)
     return {k: stack_layers(v, n) for k, v in tree.items()}
 
 
 def iter_leaves(tree, prefix: Tuple[str, ...] = ()
                 ) -> Iterator[Tuple[Tuple[str, ...], object]]:
     """(path, leaf) pairs of a nested dict, keys sorted at every level (the
-    order JAX flattens a dict in)."""
+    order JAX flattens a dict in); a plain tuple (xLSTM's recurrent states)
+    is walked in order, its indices in the path."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from iter_leaves(tree[k], prefix + (k,))
+    elif type(tree) is tuple:
+        for i, v in enumerate(tree):
+            yield from iter_leaves(v, prefix + (i,))
     else:
         yield prefix, tree
 
 
 def map_tree(fn, tree):
-    """``fn`` applied to every leaf of a nested dict, structure kept."""
+    """``fn`` applied to every leaf of a nested dict (plain tuples
+    included), structure kept."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if type(tree) is tuple:
+        return tuple(map_tree(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -108,6 +120,12 @@ def materialize(seed: int, tree, param_dtype: str = "float32",
             return torch.ones(p.shape, dtype=dt, device=device)
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dt, device=device)
+        if p.init == "const":
+            return torch.full(p.shape, p.value, dtype=dt, device=device)
+        if p.init == "log_arange":
+            n = torch.arange(1, p.shape[-1] + 1, dtype=torch.float32,
+                             device=device)
+            return torch.log(n).expand(p.shape).to(dt).contiguous()
         return torch.empty(p.shape, dtype=dt, device=device).normal_(
             0.0, p.std(), generator=gen)
 

@@ -7,11 +7,18 @@ from repro_torch.configs.base import ModelConfig
 
 def build_model(cfg: ModelConfig, **kw):
     """The decoder LM for the dense, MoE and VLM families (``kw``: the
-    ``TransformerLM`` constructor's, ``moe_impl``); the SSM, hybrid and
-    audio families are not ported yet."""
+    ``TransformerLM`` constructor's, ``moe_impl``), xLSTM for ``ssm``,
+    Hymba for ``hybrid`` and the encoder-decoder for ``audio``."""
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM(cfg, **kw)
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet: ROADMAP Queue 1 "
-        f"item 'the remaining model families'")
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm import XLSTMModel
+        return XLSTMModel(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hymba import HymbaModel
+        return HymbaModel(cfg)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import EncDecModel
+        return EncDecModel(cfg)
+    raise ValueError(f"unknown family {cfg.family!r}")

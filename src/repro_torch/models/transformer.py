@@ -306,6 +306,47 @@ class TransformerLM(nn.Module):
         return total, metrics
 
 
+class HiddenStateLM(nn.Module):
+    """``init``, ``param_count``, ``forward``, ``last_logits`` and
+    ``loss_fn`` of a model with no aux loss (xLSTM, Hymba, the
+    encoder-decoder), from its ``describe()`` and its
+    ``_hidden(params, batch)``: the normalised final hidden states
+    (B, S, d) of the batch's tokens."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+
+    def init(self, seed: int, device=None) -> Dict:
+        return materialize(seed, self.describe(), self.cfg.param_dtype,
+                           device)
+
+    def param_count(self) -> int:
+        return count_params(self.describe())
+
+    def forward(self, params: dict, batch: dict
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward: (logits (B, S, V), a zero aux loss)."""
+        x = self._hidden(params, batch)
+        return (nnl.unembed(params["embed"], x, self.cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def last_logits(self, params: dict, batch: dict) -> torch.Tensor:
+        """``forward``'s logits at the last position only, (B, V)."""
+        x = self._hidden(params, batch)
+        return nnl.unembed(params["embed"], x[:, -1], self.cfg)
+
+    def loss_fn(self, params: dict, batch: dict
+                ) -> Tuple[torch.Tensor, dict]:
+        """Cross-entropy + z-loss and the metrics."""
+        x = self._hidden(params, batch)
+        loss, metrics = chunked_ce_loss(params["embed"], x, batch["targets"],
+                                        self.cfg,
+                                        loss_mask=batch.get("loss_mask"))
+        metrics["loss"] = loss
+        return loss, metrics
+
+
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------

@@ -1,13 +1,15 @@
-"""Helpers of the tests that hold the port's MoE and VLM models against the
-JAX package: the per-layer fan-in rescaling of a JAX parameter tree, and
-routing records of the two packages' MoE routers.
+"""Helpers of the tests that hold the port's model families against the JAX
+package: the per-layer fan-in rescaling of a JAX parameter tree, routing
+records of the two packages' MoE routers, and the bf16 gate.
 
 Fan-in.  The reference's init takes a leaf's fan-in from ``shape[0]``:
 after ``stack_layers`` that is the layer count, and for an unstacked expert
 leaf (E, d, F) the expert count (ROADMAP 3b).  ``per_layer_fan_in``
 rescales every stacked matrix to the fan-in of the matrix a layer (an
 expert, for expert leaves) applies: ``shape[1]``, or ``shape[2]`` for the
-(L, E, d_in, d_out) expert leaves; the router keeps its std of 0.02.
+(L, E, d_in, d_out) expert leaves; leaves with an init of their own keep it
+(``OWN_INIT``: the router's std 0.02, Hymba's conv kernel and A_log).
+Hymba's one-layer segments draw every other matrix at std 1 (ROADMAP 3b).
 
 Routing.  Both routers compute their logits in the activation dtype.  In
 bf16 the two packages' hidden states differ by an ulp or two (each rounds
@@ -28,11 +30,20 @@ and float32 values, as ``chip_smoke.py`` holds bf16 decode
 (``check_teacher_forcing``).
 """
 import contextlib
+import io
 
 import jax
 import numpy as np
+import torch
+
+from repro_torch.models.convert import to_numpy_tree
+from repro_torch.models.param import iter_leaves
 
 BF16_RATIO = 2.0
+REL = 1e-5             # float32: of the largest value compared
+# stacked leaves with an init of their own, kept as drawn: the MoE router
+# (std 0.02) and Hymba's conv kernel (std 0.1) and A_log (log 1..N)
+OWN_INIT = ("router", "conv_w", "a_log")
 
 
 def assert_bf16_close(got, want, want32, ok=None) -> None:
@@ -56,7 +67,7 @@ def per_layer_fan_in(tree):
     docstring)."""
     def fix(path, a):
         keys = [k.key for k in path]
-        if keys[0] != "stack" or a.ndim < 3 or keys[-1] == "router":
+        if keys[0] != "stack" or a.ndim < 3 or keys[-1] in OWN_INIT:
             return a
         fan = a.shape[2] if "moe" in keys and a.ndim == 4 else a.shape[1]
         return (a * np.sqrt(a.shape[0] / fan)).astype(a.dtype)
@@ -123,3 +134,42 @@ def reached_by_flips(flips, where, B: int, S: int) -> np.ndarray:
             b, s = where(call, rows)
             np.minimum.at(first, b, s)
     return np.arange(S)[None, :] >= first[:, None]
+
+
+def as_float32(x) -> np.ndarray:
+    """A tensor (bf16 widened) or a JAX / numpy array as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def assert_rel_close(got, want, rel=REL, what=""):
+    """Within ``rel`` of the largest finite |want|; infinities equal."""
+    got, want = as_float32(got), as_float32(want)
+    assert got.shape == want.shape, (got.shape, want.shape, what)
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_array_equal(got[~fin], want[~fin])
+    if fin.any():
+        scale = np.abs(want[fin]).max()
+        assert np.abs(got[fin] - want[fin]).max() <= rel * scale, \
+            (what, np.abs(got[fin] - want[fin]).max(), scale)
+
+
+def assert_tree_close(tree, jtree, rel=REL):
+    """A port tree against a JAX one: paths, shapes and values."""
+    flat = list(iter_leaves(to_numpy_tree(tree)))
+    jflat = jax.tree_util.tree_flatten_with_path(jtree)[0]
+    assert [p for p, _ in flat] == [
+        tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+        for path, _ in jflat]
+    for (path, a), (_, b) in zip(flat, jflat):
+        assert_rel_close(a, b, rel, str(path))
+
+
+def stdout_lines(fn, *args):
+    """(the lines ``fn(*args)`` prints, its result)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return buf.getvalue().splitlines(), out

@@ -174,9 +174,14 @@ def _records(kind, rec):
 
 def test_exchange_backend_audit_matches_the_reference():
     """Every pick's record, on 288 call shapes, through the auto path
-    (fabric stump) and an explicit table (nearest cell)."""
+    (fabric stump) and an explicit table (nearest cell).  Both packages'
+    artifact caches are emptied first, so that each loads its tables
+    inside the recording (its ``*_load`` counters compared too), whichever
+    tests ran before in the process."""
     table = ((4, 8, 4, "dense"), (32, 64, 16, "compacted"),
              (8, 128, 64, "compacted"))
+    xs.refresh()
+    jxs.refresh()
     rec, jrec = obs.TraceRecorder(), jobs.TraceRecorder()
     shapes = [(n, q, w) for n in (1, 2, 4, 8, 16, 32, 64, 128)
               for q in (1, 4, 16, 64, 256, 1024) for w in (1, 16, 4096,

@@ -131,7 +131,7 @@ def test_config_matches_reference(arch):
         TREE_SIZES[arch]
     assert count_params(build_model(t.reduced()).describe()) == \
         j_count_params(j_build_model(j.reduced()).describe())
-    assert sorted(all_configs()) == sorted(ARCHS)
+    assert sorted(all_configs()) == sorted(j_all_configs())
     with pytest.raises(KeyError, match="unknown architecture"):
         get_config("no-such-arch")
 

@@ -423,11 +423,19 @@ def test_run_training_refuses_adaptation_until_ported():
 
 
 def test_other_families_raise_not_implemented():
-    """The SSM, hybrid and audio families are not ported yet."""
-    for family in ("ssm", "hybrid", "audio"):
-        cfg = dataclasses.replace(all_configs()["gemma3-1b"], family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg)
+    """Every family is ported: the registry builds the SSM, hybrid and
+    audio families' classes, as the reference's does, and raises only for
+    an unknown family (``ValueError``, as the reference), never
+    ``NotImplementedError``."""
+    from repro_torch.models.encdec import EncDecModel
+    from repro_torch.models.hymba import HymbaModel
+    from repro_torch.models.xlstm import XLSTMModel
+    for arch, cls in (("xlstm-125m", XLSTMModel), ("hymba-1.5b", HymbaModel),
+                      ("whisper-base", EncDecModel)):
+        assert type(build_model(all_configs()[arch])) is cls
+    cfg = dataclasses.replace(all_configs()["gemma3-1b"], family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg)
 
 
 def test_entry_points_default_to_the_card(tmp_path):
