@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one card: the burst-buffer data
-plane, fault-tolerant training of gemma3-1b with Proteus checkpoints,
-serving the dense configs, the MoE and VLM families, then the recurrent,
-hybrid and audio families.
+plane, fault-tolerant training of gemma3-1b with Proteus checkpoints, the
+launchers' substrate, serving the dense configs, the MoE and VLM
+families, then the recurrent, hybrid and audio families.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, each of which must succeed or the run fails without a result line:
@@ -105,7 +105,8 @@ Phases, each of which must succeed or the run fails without a result line:
       migrate.installment -> client.migrate -> engine.migrate_rows; and
       times one telemetry record, a tick without adoption, each
       installment (one under the profiler), the migration, the
-      re-compaction's gather against its bytes bound and the phase's
+      re-compaction's gather against its bytes bound (and ``index_select``
+      at that shape) and the phase's
       peak memory; then the deployment's write, read and stat with
       telemetry and tracing each turned on and off in place (latency,
       launches, syncs, copies);
@@ -181,6 +182,31 @@ Phases, each of which must succeed or the run fails without a result line:
       against its bound beside the per-leaf launches'; the routing's time
       and host time per save; the train step's time, tokens/s and a
       profile of one step;
+  (m) the launchers' substrate, at full width: (m1) ten dry-run model
+      cells (``M1_CELLS``) through ``launch.dryrun.main`` on meta tensors,
+      four at a time in spawned worker processes, each record ``ok``, its
+      per-device argument bytes equal to a count of the leaves' shard
+      shapes and its useful ratio in (0, 1.2], their counted FLOPs and
+      bytes, the three roofline terms on the H100's constants and the
+      bottleneck printed; (m2, on phase g's save, before its corrupt
+      restore) ``restore(shardings=...)`` of the 12 GB train state onto
+      a (1, 1) ``("data", "model")`` ``DeviceMesh`` on NCCL with the
+      shardings of ``spec_tree_for`` over its axes, every leaf a
+      ``DTensor`` whose ``full_tensor()`` equals the saved leaf bit for
+      bit, beside a restore without shardings, every checkpoint kernel
+      launch held against its plain version (``HeldAgainstPlain``), the
+      times and the peak memory; (m3) Int8 and TopK(0.1) over three
+      error-feedback steps of one full-width gradient (4 × 1024): sent +
+      residual equal to g + residual within float32 rounding, Int8's
+      |q| ≤ 127, TopK at least k a leaf with every sent |g| above every
+      unsent one, three leaves (the embedding, a stacked layer leaf, the
+      final norm) equal to the same compressor on the CPU bit for bit,
+      a call's time and the peak memory; (m4) ``gpipe_apply`` at world
+      size 1 on NCCL through one full-width global decoder layer, 6
+      microbatches of (1, 1024, 1152) bf16, equal to ``sequential_ref``
+      bit for bit; (m5) a 4 × 1024 forward under ``mesh_context`` of the
+      (1, 1) mesh equal to the plain forward bit for bit; one
+      ``{"substrate": ...}`` JSON line;
   (j) serving (the training state freed first), under the reference's
       serving dtypes (``serving_config``: bf16 params, bf16 activations):
       gemma3-1b at full width, 16 prompt + 32 greedy tokens at B 4 through
@@ -2557,15 +2583,21 @@ def adapt_path_timings(client, ctl, seed: int) -> dict:
     check_clear_chunks(st)
     g_ms = device_ms(lambda: gather_rows_batched(st.data, idx), 3, b)
     p_ms = cuda_ms(lambda: pack_chunks_ref(flat, fidx), 2, warmup=1)
+    # the library's one call: index_select of every output row (a blank
+    # row's -1 clamped to row 0), as the send pack's yardstick
+    safe = fidx.clamp(min=0).long()
+    l_ms = cuda_ms(lambda: torch.index_select(flat, 0, safe), 3, warmup=1)
+    del safe
     log(f"[time] re-compaction gather ({N_NODES}, {cap}) rows of 1 MiB, "
         f"{rows} live: pack_chunks {g_ms:.4f} ms device, plain "
-        f"{p_ms:.4f} ms, bound {b:.4f} ms ({by}, "
-        f"{nbytes / 2 ** 30:.2f} GiB moved), {b / g_ms:.3f} of bound")
+        f"{p_ms:.4f} ms, index_select {l_ms:.4f} ms, bound {b:.4f} ms "
+        f"({by}, {nbytes / 2 ** 30:.2f} GiB moved), {b / g_ms:.3f} of "
+        f"bound")
     out.update(record_ms=rec_ms, record_profile={
         k: rec_prof[k] for k in ("launches", "syncs", "htod", "wall_ms")},
         tick_ms=min(t for t, _ in ticks), gather=dict(
-            ms=g_ms, plain_ms=p_ms, bound_ms=b, bound_by=by,
-            gib=nbytes / 2 ** 30, rows=rows))
+            ms=g_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b,
+            bound_by=by, gib=nbytes / 2 ** 30, rows=rows))
     return out
 
 
@@ -3502,7 +3534,10 @@ def phase_train(seed: int, counters, route_counter, checksum_counter,
 # ---------------------------------------------------------------------------
 # (g) checkpoint and step times
 # ---------------------------------------------------------------------------
-def phase_checkpoint_times(train: dict) -> dict:
+def phase_checkpoint_times(train: dict, sharded=None) -> dict:
+    """Times of a save and restores of the final state; ``sharded(mgr,
+    state)``, when given, runs on the save after its first restore (phase
+    m2) and its result is returned under ``"sharded"``."""
     from repro_torch.checkpoint.manager import (CHUNK_WORDS,
                                                 CheckpointManager,
                                                 flatten_state)
@@ -3551,6 +3586,8 @@ def phase_checkpoint_times(train: dict) -> dict:
                               b.reshape(-1).view(torch.uint8)),
                   f"restored leaf {k} differs from the saved one")
         del restored
+        if sharded is not None:
+            out["sharded"] = sharded(mgr, state)
         # a corrupt chunk in the middle leaf: the restore stops at most
         # one group of leaves past it
         bad_key = leaves[len(leaves) // 2][0]
@@ -3700,6 +3737,397 @@ def phase_step_times(seed: int, train: dict) -> dict:
         f"{TRAIN_SEQ}")
     profile_call("train step", one)
     return {"step_ms": t_step, "tokens_per_s": tokens / t_step * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# (m) the launchers' substrate: dry-run cells, sharded restore, gradient
+# compression, the pipeline, a forward under a mesh context
+# ---------------------------------------------------------------------------
+# m1's cells (arch, shape, mesh), run on meta tensors through the dry run's
+# command line (deepseek-v2-lite-16b prefill_32k multi and whisper-base
+# prefill_32k single took 171 s and 31 s of host time on meta tensors, so
+# they are left to the command line's --all sweep, and the same archs run
+# decode_32k multi and train_4k single here); m3's compressors over M3_STEPS error-feedback steps of one
+# full-width gradient; m4's pipeline over GPIPE_MICRO microbatches of one
+# (1, TRAIN_SEQ, d) activation through one full-width decoder layer
+M1_CELLS = (("gemma3-1b", "train_4k", "single"),
+            ("gemma3-1b", "prefill_32k", "single"),
+            ("gemma3-1b", "decode_32k", "single"),
+            ("gemma3-1b", "long_500k", "single"),
+            ("gemma3-1b", "train_4k", "multi"),
+            ("deepseek-v2-lite-16b", "decode_32k", "multi"),
+            ("hymba-1.5b", "long_500k", "single"),
+            ("xlstm-125m", "decode_32k", "single"),
+            ("whisper-base", "train_4k", "single"),
+            ("qwen1.5-110b", "decode_32k", "multi"))
+M1_WORKERS = 4                   # processes running m1's cells at once
+M3_STEPS, TOPK_FRAC = 3, 0.1
+GPIPE_MICRO = 6
+F32_EPS = 2.0 ** -23
+
+
+def device_mesh11():
+    """This process's NCCL world of one (``make_node_mesh``) and a (1, 1)
+    ``("data", "model")`` ``DeviceMesh`` over it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.mesh_engine import make_node_mesh
+    node = make_node_mesh()
+    check(node.backend == "nccl" and node.world == 1,
+          f"phase m needs an NCCL world of one, got {node}")
+    return node, init_device_mesh("cuda", (1, 1),
+                                  mesh_dim_names=("data", "model"))
+
+
+def train_state_shardings(model, state, mesh):
+    """``spec_tree_for`` of the train state ``(params, AdamWState,
+    cursor)``'s axes and meta tensors on ``mesh``."""
+    from repro_torch.distributed.sharding import (MeshContext,
+                                                  default_rules,
+                                                  spec_tree_for)
+    from repro_torch.train.optimizer import AdamW
+    opt = AdamW()
+    p_axes, p_abs = model.param_axes(), model.abstract_params()
+    axes = (p_axes, opt.state_axes(p_axes), (None,) * state[2].dim())
+    abstract = (p_abs, opt.abstract_state(p_abs),
+                torch.empty_like(state[2], device="meta"))
+    return spec_tree_for(axes, abstract, MeshContext(mesh,
+                                                     default_rules(mesh)))
+
+
+def m2_sharded_restore(mgr, state, step: int, model, mesh,
+                       counters) -> dict:
+    """m2, on phase g's save: a restore onto ``mesh`` with the train
+    state's shardings, every leaf a ``DTensor`` whose ``full_tensor()``
+    equals the saved leaf bit for bit, beside a restore without shardings;
+    every checkpoint kernel launch held against its plain version.
+    ``counters``: the segmented checksum's and routing's, zeroed here and
+    read after the two restores."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.checkpoint.manager import distribute, flatten_state
+    from repro_torch.distributed.sharding import NamedSharding
+    sh = train_state_shardings(model, state, mesh)
+    # DTensor's first use on the mesh (its one-time set-up), timed apart
+    t0 = time.perf_counter()
+    for spec in (("data", "model"), (None, None)):
+        distribute(torch.zeros((2, 2), device=DEVICE),
+                   NamedSharding(mesh, spec))
+    torch.cuda.synchronize()
+    times = {"first_use": time.perf_counter() - t0}
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with HeldAgainstPlain() as held:
+        for name, kw in (("plain", {}), ("sharded", {"shardings": sh})):
+            held_s = held.seconds
+            t0 = time.perf_counter()
+            got, got_step = mgr.restore(step, state, **kw)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0 - (held.seconds - held_s)
+            check(got_step == step, f"m2: restored step {got_step}")
+            if name == "plain":
+                del got
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    leaves = flatten_state(state)
+    laid = flatten_state(got)
+    check(len(laid) == len(leaves), "m2: restored leaves differ in number")
+    n_sharded = 0
+    for (k, d), (_, s), (_, want) in zip(laid, flatten_state(sh), leaves):
+        check(isinstance(d, DTensor) and d.device_mesh is mesh,
+              f"m2: leaf {k} is not a DTensor on the mesh")
+        check(list(d.placements) == s.placements(),
+              f"m2: leaf {k} placed {d.placements}, not {s.placements()}")
+        n_sharded += any(p is not None for p in s.spec)
+        full = d.full_tensor()
+        check(full.dtype == want.dtype and full.shape == want.shape and
+              torch.equal(full.reshape(-1).view(torch.uint8),
+                          want.reshape(-1).view(torch.uint8)),
+              f"m2: leaf {k} differs from the saved one")
+    del got, laid
+    launches = {c.name: c.launches for c in counters}
+    rep = held.report()
+    for c in counters:
+        check(rep["calls"][c.name] == c.launches > 0,
+              f"m2: {c.name} launched {c.launches} times, "
+              f"{rep['calls'][c.name]} held against its plain version")
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    log(f"[m2] restore of the {nbytes / 1e9:.2f} GB train state onto a (1, 1) "
+        f"('data', 'model') DeviceMesh (NCCL): {len(leaves)} leaves as "
+        f"DTensors ({n_sharded} with a sharded spec on the mesh's "
+        f"size-1 axes), full_tensor() equal to the saved leaves bit for "
+        f"bit; restore without shardings {times['plain'] * 1e3:.1f} ms, "
+        f"with {times['sharded'] * 1e3:.1f} ms (DTensor's first use on the "
+        f"mesh before them: {times['first_use'] * 1e3:.1f} ms); peak device "
+        f"memory "
+        f"{peak:.2f} GiB above the phase's start; checkpoint launches "
+        f"{launches} all equal to their plain versions "
+        f"({rep['seconds']:.2f} s of checks)")
+    return dict(plain_ms=times["plain"] * 1e3,
+                sharded_ms=times["sharded"] * 1e3,
+                first_use_ms=times["first_use"] * 1e3, peak_gib=peak,
+                n_leaves=len(leaves), n_sharded=n_sharded,
+                launches=launches, held=rep)
+
+
+def m1_cell(argv: list) -> float:
+    """One dry-run cell through ``launch.dryrun.main`` in a worker process
+    (meta tensors only: no card); its seconds."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    dryrun.main(argv)
+    return time.perf_counter() - t0
+
+
+def m1_dryrun_cells() -> dict:
+    """m1: the dry run's model cells through ``launch.dryrun.main``,
+    ``M1_WORKERS`` cells at a time in spawned processes, each record
+    ``ok``, its per-device argument bytes equal to a count from the
+    leaves' shard shapes, its useful ratio in (0, 1.2]."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ALL_SHAPES, all_configs
+    from repro_torch.distributed.sharding import (MeshContext,
+                                                  default_rules,
+                                                  spec_tree_for,
+                                                  tree_leaves)
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import input_specs
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        with ProcessPoolExecutor(M1_WORKERS, mp_context=multiprocessing
+                                 .get_context("spawn")) as pool:
+            walls = list(pool.map(m1_cell, [
+                ["--arch", a, "--shape", s, "--mesh", m, "--out", d]
+                for a, s, m in M1_CELLS]))
+        for (arch, shape, mesh_kind), wall in zip(M1_CELLS, walls):
+            rec = json.loads((Path(d) / f"{arch}__{shape}__{mesh_kind}"
+                                        f".json").read_text())
+            tag = f"{arch} {shape} {mesh_kind}"
+            check(rec["status"] == "ok", f"m1: {tag} is {rec['status']}")
+            mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+            sh_ = ALL_SHAPES[shape]
+            ctx = MeshContext(mesh, default_rules(
+                mesh, fsdp=True, seq_shard=sh_.kind == "long_decode"))
+            args, axes = input_specs(all_configs()[arch], sh_)
+            hand = 0
+            for t, sh in zip(tree_leaves(args),
+                             tree_leaves(spec_tree_for(axes, args, ctx))):
+                shard = [n // math.prod(mesh.shape[a] for a in (
+                    p if isinstance(p, tuple) else (p,)))
+                    if p else n for n, p in zip(t.shape, sh.spec)]
+                hand += math.prod(shard) * t.element_size()
+            got = rec["memory_analysis"]["argument_size_in_bytes"]
+            check(got == hand, f"m1: {tag} argument bytes {got}, a count "
+                               f"of the shards gives {hand}")
+            r = rec["roofline"]
+            check(0 < r["useful_ratio"] <= 1.2,
+                  f"m1: {tag} useful ratio {r['useful_ratio']}")
+            log(f"[m1] {tag}: {r['device_flops']:.4e} FLOPs and "
+                f"{r['device_traffic_bytes']:.4e} bytes a device "
+                f"({rec['chips']} chips), collectives "
+                f"{r['device_collective_bytes']:.4e} B; compute "
+                f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, "
+                f"collective {r['collective_s']:.6f} s on the H100's "
+                f"constants: {r['bottleneck']}; useful ratio "
+                f"{r['useful_ratio']:.4f}; argument bytes a device {got} "
+                f"(equal to the shards' count); meta run {rec['lower_s']} "
+                f"s, {wall:.2f} s in its worker with the record")
+            out[tag] = dict(flops=r["device_flops"],
+                            bytes=r["device_traffic_bytes"],
+                            collective_bytes=r["device_collective_bytes"],
+                            compute_s=r["compute_s"],
+                            memory_s=r["memory_s"],
+                            collective_s=r["collective_s"],
+                            bottleneck=r["bottleneck"],
+                            useful_ratio=r["useful_ratio"],
+                            argument_bytes=got, seconds=wall)
+    return out
+
+
+def m3_check_leaf(name: str, path, g, r_old, sent, r_new, frac) -> None:
+    """One leaf of one compressor step: conservation, and Int8's range or
+    TopK's selection."""
+    before = g.float() + r_old
+    err = (sent + r_new - before).abs()
+    tol = 2 * F32_EPS * torch.maximum(before.abs(), sent.abs())
+    check(bool((err <= tol).all()),
+          f"m3 {name} {path}: sent + residual moved g + residual by "
+          f"{float(err.max())}")
+    if name == "int8":
+        scale = torch.clamp(before.abs().max(), min=1e-12) / 127.0
+        check(float(sent.abs().max()) <= 127 * float(scale) *
+              (1 + 4 * F32_EPS), f"m3 int8 {path}: |q| above 127")
+    else:
+        k = max(1, int(before.numel() * frac))
+        on = sent != 0
+        check(int(on.sum()) >= k, f"m3 topk {path}: {int(on.sum())} sent, "
+                                  f"k {k}")
+        a = before.abs()
+        if bool((~on).any()):
+            check(float(a[~on].max()) < float(a[on].min()),
+                  f"m3 topk {path}: an unsent |g| above a sent one")
+
+
+def m3_compressors(seed: int, train: dict) -> dict:
+    """m3: Int8 and TopK(0.1) over M3_STEPS error-feedback steps of one
+    full-width gemma3-1b gradient at TRAIN_BATCH × TRAIN_SEQ; three leaves
+    (the embedding, a stacked layer leaf, a norm) against the same
+    compressor on the CPU at the last step, bit for bit."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.compression import (Int8Compressor,
+                                                     TopKCompressor)
+    from repro_torch.models.param import get_path, iter_leaves
+    from repro_torch.train.train_step import _value_and_grad
+    cfg, model = train["cfg"], train["model"]
+    params = train["result"].state[0]
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed + 1)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in pipe.next_batch().items()}
+    grads, _ = _value_and_grad(model, params, batch)
+    paths = [p for p, _ in iter_leaves(grads)]
+    picks = (("embed", "embedding"),
+             next(p for p in paths if p[0] == "stack" and
+                  get_path(grads, p).dim() == 3),
+             ("ln_f",))
+    out = {}
+    for name, comp in (("int8", Int8Compressor()),
+                       ("topk", TopKCompressor(TOPK_FRAC))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = comp.init(params)
+        ms = []
+        for step in range(M3_STEPS):
+            last = step == M3_STEPS - 1
+            cpu_in = ({p: (get_path(grads, p).cpu(), get_path(res, p).cpu())
+                       for p in picks} if last else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sent, new = comp(grads, res)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for p in paths:
+                m3_check_leaf(name, p, get_path(grads, p),
+                              get_path(res, p), get_path(sent, p),
+                              get_path(new, p), TOPK_FRAC)
+            if last:
+                for p, (g, r) in cpu_in.items():
+                    cs, cr = comp({"x": g}, {"x": r})
+                    check(torch.equal(cs["x"], get_path(sent, p).cpu()) and
+                          torch.equal(cr["x"], get_path(new, p).cpu()),
+                          f"m3 {name} {p}: the card's sent/residual "
+                          f"differ from the CPU's")
+            del sent, res
+            res = new
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del res, new
+        out[name] = dict(ms=ms, peak_gib=peak)
+        log(f"[m3] {name}: {M3_STEPS} error-feedback steps over "
+            f"{len(paths)} leaves, {sum(t.numel() for _, t in iter_leaves(grads)):,} "
+            f"gradient elements: {', '.join(f'{t:.1f}' for t in ms)} ms a "
+            f"call; sent + residual = g + residual within float32 "
+            f"rounding, {'|q| <= 127' if name == 'int8' else 'at least k a leaf, every sent |g| above every unsent one'}; "
+            f"{', '.join('/'.join(p) for p in picks)} equal to the CPU's "
+            f"bit for bit; peak {peak:.2f} GiB above the phase's start")
+    del grads
+    return out
+
+
+def m4_gpipe(seed: int, train: dict, node) -> dict:
+    """m4: ``gpipe_apply`` at world size 1 on NCCL, one full-width global
+    decoder layer as the stage, GPIPE_MICRO microbatches of (1,
+    TRAIN_SEQ, d) bf16; equal to ``sequential_ref`` bit for bit."""
+    from repro_torch.distributed.pipeline import gpipe_apply, sequential_ref
+    from repro_torch.models.param import map_tree
+    from repro_torch.models.transformer import apply_layer
+    cfg = train["cfg"]
+    params = train["result"].state[0]
+    seg = next(k for k in params["stack"] if k.endswith("_global"))
+    stage_params = map_tree(lambda a: a[:1], params["stack"][seg])
+    positions = torch.arange(TRAIN_SEQ, dtype=torch.int32,
+                             device=DEVICE)[None]
+
+    def stage_fn(p, x):
+        return apply_layer(p, x, positions, cfg, "global")[0]
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((GPIPE_MICRO, 1, TRAIN_SEQ, cfg.d_model), device=DEVICE,
+                    generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        stage_fn(map_tree(lambda a: a[0], stage_params), x[0])   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gpipe_apply(stage_fn, stage_params, x, node, n_stages=1)
+        torch.cuda.synchronize()
+        t_pp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = sequential_ref(stage_fn, stage_params, x, n_stages=1)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+    check(out.shape == x.shape and bool(torch.isfinite(out).all()),
+          "m4: gpipe output not finite")
+    check(torch.equal(out, ref), "m4: gpipe_apply differs from "
+                                 "sequential_ref")
+    log(f"[m4] gpipe_apply, world size 1 (NCCL), stage {seg} layer 0 of "
+        f"{cfg.name} at full width, {GPIPE_MICRO} microbatches of (1, "
+        f"{TRAIN_SEQ}, {cfg.d_model}) bf16: equal to sequential_ref bit "
+        f"for bit; {t_pp * 1e3:.1f} ms against {t_ref * 1e3:.1f} ms")
+    return dict(ms=t_pp * 1e3, sequential_ms=t_ref * 1e3)
+
+
+def m5_forward_under_mesh(seed: int, train: dict, mesh) -> dict:
+    """m5: a full-width gemma3-1b forward at TRAIN_BATCH × TRAIN_SEQ under
+    ``mesh_context`` of the (1, 1) ``DeviceMesh``, equal to the same
+    forward without it, bit for bit."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import mesh_context
+    cfg, model = train["cfg"], train["model"]
+    params = train["result"].state[0]
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed + 2)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in pipe.next_batch().items()}
+    with torch.no_grad():
+        model.forward(params, batch)                              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = model.forward(params, batch)[0]
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        with mesh_context(mesh):
+            t0 = time.perf_counter()
+            laid = model.forward(params, batch)[0]
+            torch.cuda.synchronize()
+            t_laid = time.perf_counter() - t0
+    check(bool(torch.isfinite(plain.float()).all()), "m5: logits not finite")
+    check(torch.equal(plain, laid), "m5: the forward under the mesh "
+                                    "context differs")
+    log(f"[m5] {cfg.name} forward at {TRAIN_BATCH} x {TRAIN_SEQ} under "
+        f"mesh_context of the (1, 1) DeviceMesh equal to the plain forward "
+        f"bit for bit ({tuple(plain.shape)} {plain.dtype} logits); "
+        f"{t_plain * 1e3:.1f} / {t_laid * 1e3:.1f} ms")
+    return dict(plain_ms=t_plain * 1e3, laid_ms=t_laid * 1e3)
+
+
+def phase_substrate(seed: int, train: dict, sharded: dict, node,
+                    mesh) -> dict:
+    """Phase m (m2 ran on phase g's save: ``sharded``)."""
+    t0 = time.perf_counter()
+    out = {"m1": m1_dryrun_cells()}
+    t1 = time.perf_counter()
+    out["m2"] = sharded
+    out["m3"] = m3_compressors(seed, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["m4"] = m4_gpipe(seed, train, node)
+    out["m5"] = m5_forward_under_mesh(seed, train, mesh)
+    out["m1_s"] = t1 - t0
+    out["s"] = time.perf_counter() - t0
+    log(f"[m] phase m: m1 {out['m1_s']:.1f} s, the rest "
+        f"{out['s'] - out['m1_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5587,12 +6015,26 @@ def main() -> int:
                             FLETCHER)
         launches.update(train["launches"])
         phase = "checkpoint times"
-        times.update(phase_checkpoint_times(train))
+        node, dmesh = device_mesh11()
+        g_times = phase_checkpoint_times(
+            train, lambda mgr, state: m2_sharded_restore(
+                mgr, state, TRAIN_STEPS, train["model"], dmesh,
+                ckpt_counters))
+        sharded = g_times.pop("sharded")
+        for k, n in sharded["launches"].items():
+            launches[k] += n
+        times.update(g_times)
         err["fletcher_segmented"] = max(err["fletcher_segmented"],
                                         times["fletcher_segmented"]["err"])
         phase = "step times"
         times["step"] = phase_step_times(args.seed, train)
-        del train
+        phase = "substrate"
+        substrate = phase_substrate(args.seed, train, sharded, node, dmesh)
+        log(json.dumps({"substrate": substrate}))
+        del train, substrate, sharded
+        torch.distributed.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
         phase = "serve"
         serve = phase_serve(args.seed, counters + ckpt_counters + (
             DEST_HISTOGRAM2D, FLETCHER, FLASH_ATTENTION, FLASH_ATTENTION_F32,

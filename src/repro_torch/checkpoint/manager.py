@@ -105,6 +105,19 @@ def unflatten_like(like, leaves: Dict[str, torch.Tensor], prefix: str = ""):
     return leaves[prefix]
 
 
+def distribute(t: torch.Tensor, sharding) -> torch.Tensor:
+    """``t`` (the same on every rank) as a ``DTensor`` laid out by
+    ``sharding`` (a ``NamedSharding`` on a ``DeviceMesh``): each rank keeps
+    its own shard, with no communication."""
+    import inspect
+
+    from torch.distributed.tensor import distribute_tensor
+    # a PyTorch without src_data_rank scatters rank 0's copy instead
+    kw = ({"src_data_rank": None} if "src_data_rank" in
+          inspect.signature(distribute_tensor).parameters else {})
+    return distribute_tensor(t, sharding.mesh, sharding.placements(), **kw)
+
+
 # ---------------------------------------------------------------------------
 # manifest
 # ---------------------------------------------------------------------------
@@ -307,11 +320,19 @@ class CheckpointManager:
                        key=lambda p: int(p.stem.split("_")[1]))
         return int(metas[-1].stem.split("_")[1]) if metas else None
 
-    def restore(self, step: int, like_state, *, verify: bool = True):
+    def restore(self, step: int, like_state, *, verify: bool = True,
+                shardings=None):
         """Rebuild ``like_state``'s structure from the store, leaves on
         ``self.device``.  Raises ``IOError`` on a missing chunk or, with
         ``verify``, on the first chunk whose checksum (or length) differs
-        from the manifest's, chunks taken leaf by leaf in order."""
+        from the manifest's, chunks taken leaf by leaf in order.
+
+        ``shardings`` (optional: a tree of the state's structure whose
+        leaves are ``distributed.sharding.NamedSharding``s on a torch
+        ``DeviceMesh``, e.g. from ``spec_tree_for``) lays the restored
+        state out on the CURRENT mesh, each leaf a ``DTensor`` — the
+        reference's elastic restart onto another topology.  Every rank
+        restores the whole leaf and keeps its own shard of it."""
         meta = CheckpointMeta.from_json(
             (self.dir / f"ckpt_{step}.json").read_text())
         by_key: Dict[str, List[dict]] = {}
@@ -366,6 +387,9 @@ class CheckpointManager:
             raw = got.words.view(torch.uint8)[:info["nbytes"]]
             leaves[got.key] = raw.view(DTYPES[info["dtype"]]).reshape(
                 info["shape"])
+        if shardings is not None:
+            by_key = dict(flatten_state(shardings))
+            leaves = {k: distribute(t, by_key[k]) for k, t in leaves.items()}
         return unflatten_like(like_state, leaves), meta.step
 
     def _fetch(self, path: str, key: str, chunks: List[dict],

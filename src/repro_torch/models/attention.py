@@ -44,6 +44,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm
 from repro_torch.models.param import P, dense, torch_dtype
 
@@ -62,16 +63,21 @@ def describe_attention(cfg: ModelConfig) -> dict:
     d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if cfg.use_mla:
         r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-        return {"wq": P((d, H, dn + dr)), "w_dkv": dense(d, r),
-                "w_kpe": dense(d, dr),
-                "kv_norm": P((r,), init="ones", dtype="float32"),
-                "w_uk": P((r, H, dn)), "w_uv": P((r, H, cfg.v_head_dim)),
-                "wo": P((H, cfg.v_head_dim, d))}
-    out = {"wq": P((d, H, D)), "wk": P((d, KV, D)), "wv": P((d, KV, D)),
-           "wo": P((H, D, d))}
+        return {"wq": P((d, H, dn + dr), ("embed", "heads", None)),
+                "w_dkv": dense(d, r, "embed", None),
+                "w_kpe": dense(d, dr, "embed", None),
+                "kv_norm": P((r,), (None,), init="ones", dtype="float32"),
+                "w_uk": P((r, H, dn), (None, "heads", None)),
+                "w_uv": P((r, H, cfg.v_head_dim), (None, "heads", None)),
+                "wo": P((H, cfg.v_head_dim, d), ("heads", None, "embed"))}
+    out = {"wq": P((d, H, D), ("embed", "heads", None)),
+           "wk": P((d, KV, D), ("embed", "kv", None)),
+           "wv": P((d, KV, D), ("embed", "kv", None)),
+           "wo": P((H, D, d), ("heads", None, "embed"))}
     if cfg.qkv_bias:
-        out.update(bq=P((H, D), init="zeros"), bk=P((KV, D), init="zeros"),
-                   bv=P((KV, D), init="zeros"))
+        out.update(bq=P((H, D), ("heads", None), init="zeros"),
+                   bk=P((KV, D), ("kv", None), init="zeros"),
+                   bv=P((KV, D), ("kv", None), init="zeros"))
     return out
 
 
@@ -283,6 +289,16 @@ def write_cache(cache: dict, new: dict, cache_len: int) -> None:
         leaf[:, idx:idx + n] = rows
 
 
+def _constrain_blocks(t: torch.Tensor, block: int) -> torch.Tensor:
+    """(B, S, H, D) laid out by q blocks of ``block``: the blocks' dim on
+    "attn_blocks" (whole blocks only; a plain tensor comes back as is)."""
+    B, S = t.shape[:2]
+    if S % block:
+        return t
+    return logical_constraint(t.unflatten(1, (S // block, block)), "batch",
+                              "attn_blocks", None, None, None).flatten(1, 2)
+
+
 def apply_attention(params: dict, x: torch.Tensor,
                     positions: Optional[torch.Tensor],
                     cfg: ModelConfig, *, window: int = 0,
@@ -310,6 +326,15 @@ def apply_attention(params: dict, x: torch.Tensor,
     else:
         q, kx, vx = project_qkv(params, x, positions, cfg, mrope_positions)
         window = window if window < S else 0
+        if window and not cfg.shard_heads and (
+                -(-S // max(window, 512)) % 16 == 0 or H <= 8):
+            # the reference's windowed_attention_parallel(shard_blocks=...)
+            # layout: q and the keys' blocks over the model axis
+            q, kx, vx = (_constrain_blocks(t, max(window, 512))
+                         for t in (q, kx, vx))
+        elif not window and not cfg.shard_heads and S >= 2048 and H <= 12:
+            # shard the q-sequence over the idle model axis
+            q = logical_constraint(q, "batch", "attn_seq", None, None)
         if B * H * S * S * 4 <= MASKED_SCORES_BYTES:
             o = masked_attention(q, kx, vx, window=window, scale=scale,
                                  sink_len=sink_len)

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nnl
 from repro_torch.models.param import P, norm_scale, torch_dtype
@@ -35,9 +36,12 @@ POS_DEC = 32768       # learned decoder positions (the reference's table)
 
 def _describe_xattn(cfg: ModelConfig) -> dict:
     d, H, D = cfg.d_model, cfg.num_heads, cfg.head_dim
-    return {"wq": P((d, H, D)), "wk": P((d, H, D)), "wv": P((d, H, D)),
-            "wo": P((H, D, d)), "bq": P((H, D), init="zeros"),
-            "bv": P((H, D), init="zeros")}
+    return {"wq": P((d, H, D), ("embed", "heads", None)),
+            "wk": P((d, H, D), ("embed", "heads", None)),
+            "wv": P((d, H, D), ("embed", "heads", None)),
+            "wo": P((H, D, d), ("heads", None, "embed")),
+            "bq": P((H, D), ("heads", None), init="zeros"),
+            "bv": P((H, D), ("heads", None), init="zeros")}
 
 
 def describe_encoder_layer(cfg: ModelConfig) -> dict:
@@ -112,7 +116,8 @@ class EncDecModel(HiddenStateLM):
         cfg = self.cfg
         return {
             "embed": nnl.describe_embedding(cfg),
-            "pos_dec": P((POS_DEC, cfg.d_model), stddev=0.01),
+            "pos_dec": P((POS_DEC, cfg.d_model), (None, "embed"),
+                         stddev=0.01),
             "encoder": {f"layer{i}": describe_encoder_layer(cfg)
                         for i in range(cfg.encoder_layers)},
             "decoder": {f"layer{i}": describe_decoder_layer(cfg)
@@ -137,6 +142,7 @@ class EncDecModel(HiddenStateLM):
             x = x + _self_attention_bidir(p["attn"], h, cfg)
             h = nnl.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
             x = x + nnl.apply_mlp(p["mlp"], h, cfg)
+            x = logical_constraint(x, "batch", None, "embed")
         return nnl.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
     # ---- decoder ----------------------------------------------------------
@@ -161,6 +167,7 @@ class EncDecModel(HiddenStateLM):
             x = x + _cross_attention(p["xattn"], h, xk, xv, cfg)
             h = nnl.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
             x = x + nnl.apply_mlp(p["mlp"], h, cfg)
+            x = logical_constraint(x, "batch", None, "embed")
         return x
 
     def _hidden(self, params: dict, batch: dict) -> torch.Tensor:

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nnl
 from repro_torch.models import ssm
@@ -55,16 +56,16 @@ def describe_hymba_layer(cfg: ModelConfig) -> dict:
         "ln_mlp": norm_scale(d),
         "attn": attn.describe_attention(cfg),
         "norm_attn": norm_scale(d),
-        "w_xz": P((d, 2 * di)),
-        "conv_w": P((cfg.conv_kernel, di), stddev=0.1),
-        "conv_b": P((di,), init="zeros"),
-        "w_bc": P((di, 2 * N)),
-        "w_dt1": P((di, dt_rank)),
-        "w_dt2": P((dt_rank, di)),
-        "b_dt": P((di,), init="const", value=-4.6),    # softplus ≈ 0.01
-        "a_log": P((di, N), init="log_arange"),
-        "d_skip": P((di,), init="ones"),
-        "w_ssm_out": P((di, d)),
+        "w_xz": P((d, 2 * di), ("embed", "ffn")),
+        "conv_w": P((cfg.conv_kernel, di), (None, "ffn"), stddev=0.1),
+        "conv_b": P((di,), ("ffn",), init="zeros"),
+        "w_bc": P((di, 2 * N), ("ffn", None)),
+        "w_dt1": P((di, dt_rank), ("ffn", None)),
+        "w_dt2": P((dt_rank, di), (None, "ffn")),
+        "b_dt": P((di,), ("ffn",), init="const", value=-4.6),  # softplus ≈ 0.01
+        "a_log": P((di, N), ("ffn", None), init="log_arange"),
+        "d_skip": P((di,), ("ffn",), init="ones"),
+        "w_ssm_out": P((di, d), ("ffn", "embed")),
         "norm_ssm": norm_scale(d),
         "mlp": nnl.describe_mlp(cfg, cfg.d_ff),
     }
@@ -131,8 +132,10 @@ def apply_hymba_layer(params: dict, x: torch.Tensor,
     fused = 0.5 * (nnl.rms_norm(a_out, params["norm_attn"], cfg.norm_eps)
                    + nnl.rms_norm(s_out, params["norm_ssm"], cfg.norm_eps))
     x = x + fused
+    x = logical_constraint(x, "batch", "seq", "embed")
     h2 = nnl.rms_norm(x, params["ln_mlp"], cfg.norm_eps)
-    return x + nnl.apply_mlp(params["mlp"], h2, cfg)
+    x = x + nnl.apply_mlp(params["mlp"], h2, cfg)
+    return logical_constraint(x, "batch", "seq", "embed")
 
 
 class HymbaModel(HiddenStateLM):
@@ -149,7 +152,8 @@ class HymbaModel(HiddenStateLM):
         cfg = self.cfg
         return {
             "embed": nnl.describe_embedding(cfg),
-            "meta_tokens": P((cfg.num_meta_tokens, cfg.d_model)),
+            "meta_tokens": P((cfg.num_meta_tokens, cfg.d_model),
+                             (None, "embed")),
             "stack": {name: stack_layers(describe_hymba_layer(cfg), n)
                       for name, _, n in self.segments()},
             "ln_f": norm_scale(cfg.d_model),

@@ -101,9 +101,11 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
 def describe_mlp(cfg: ModelConfig, d_ff: int) -> dict:
     d = cfg.d_model
     if cfg.mlp_type in ("swiglu", "geglu"):
-        return {"wi_gate": dense(d, d_ff), "wi_up": dense(d, d_ff),
-                "wo": dense(d_ff, d)}
-    return {"wi": dense(d, d_ff), "wo": dense(d_ff, d)}
+        return {"wi_gate": dense(d, d_ff, "embed", "ffn"),
+                "wi_up": dense(d, d_ff, "embed", "ffn"),
+                "wo": dense(d_ff, d, "ffn", "embed")}
+    return {"wi": dense(d, d_ff, "embed", "ffn"),
+            "wo": dense(d_ff, d, "ffn", "embed")}
 
 
 def rounded(value: float, dtype: torch.dtype) -> float:
@@ -149,9 +151,11 @@ def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
 def describe_embedding(cfg: ModelConfig) -> dict:
-    out = {"embedding": P((cfg.padded_vocab, cfg.d_model))}
+    out = {"embedding": P((cfg.padded_vocab, cfg.d_model),
+                          ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        out["lm_head"] = dense(cfg.d_model, cfg.padded_vocab)
+        out["lm_head"] = dense(cfg.d_model, cfg.padded_vocab, "embed",
+                               "vocab")
     return out
 
 

@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models.layers import silu
 from repro_torch.models.param import P, dense
 
@@ -37,13 +38,15 @@ IMPLS = ("dense", "grouped", "dropping")
 
 def describe_moe(cfg: ModelConfig) -> dict:
     d, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-    out = {"router": P((d, E), stddev=0.02),
-           "wi_gate": P((E, d, F)), "wi_up": P((E, d, F)),
-           "wo": P((E, F, d))}
+    out = {"router": dense(d, E, "embed", None, stddev=0.02),
+           "wi_gate": P((E, d, F), ("experts", "embed", "expert_ffn")),
+           "wi_up": P((E, d, F), ("experts", "embed", "expert_ffn")),
+           "wo": P((E, F, d), ("experts", "expert_ffn", "embed"))}
     if cfg.num_shared_experts:
         Fs = cfg.num_shared_experts * cfg.moe_d_ff
-        out.update(shared_wi_gate=dense(d, Fs), shared_wi_up=dense(d, Fs),
-                   shared_wo=dense(Fs, d))
+        out.update(shared_wi_gate=dense(d, Fs, "embed", "ffn"),
+                   shared_wi_up=dense(d, Fs, "embed", "ffn"),
+                   shared_wo=dense(Fs, d, "ffn", "embed"))
     return out
 
 
@@ -101,11 +104,15 @@ def dispatch_slots(ids: torch.Tensor, E: int, C: int):
 
 
 def _dispatch_combine(params: dict, x: torch.Tensor, ids: torch.Tensor,
-                      w: torch.Tensor, E: int, C: int) -> torch.Tensor:
+                      w: torch.Tensor, E: int, C: int,
+                      grouped: bool) -> torch.Tensor:
     """Capacity dispatch within each of G groups: x (G, T, d), ids and w
     (G, T, k) → (G, T, d).  Each group's (E·C + 1, d) buffer (the last row
     the sentinel) is a slice of one flat buffer; the expert products run
-    over all groups at once, (E, G·C, d)."""
+    over all groups at once, (E, G·C, d).  ``grouped``: the groups are the
+    batch rows (the reference's layout constraints of each dispatch: the
+    grouped buffers on (batch, experts), their outputs replicated over the
+    model axis; the one group of ``dropping`` on experts)."""
     G, T, d = x.shape
     k = ids.shape[-1]
     slot, keep = dispatch_slots(ids.reshape(G, T * k), E, C)
@@ -115,8 +122,12 @@ def _dispatch_combine(params: dict, x: torch.Tensor, ids: torch.Tensor,
     src = x.repeat_interleave(k, dim=1).reshape(G * T * k, d)
     buf = x.new_zeros((G * rows, d)).index_copy(0, flat, src)
     xe = buf.view(G, rows, d)[:, :E * C].reshape(G, E, C, d)
+    lead = "batch" if grouped else None
+    xe = logical_constraint(xe, lead, "experts", None, None)
     ye = _expert_ffn(params, xe.transpose(0, 1).reshape(E, G * C, d))
-    ye = ye.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+    ye = ye.view(E, G, C, d).transpose(0, 1)
+    ye = logical_constraint(ye, lead, None if grouped else "experts", None,
+                            None).reshape(G, E * C, d)
     yg = ye.gather(1, slot.clamp(max=E * C - 1)[..., None].expand(-1, -1, d))
     yg = torch.where(keep[..., None], yg, 0.0)
     return (yg.view(G, T, k, d) * w[..., None]).sum(dim=2)
@@ -145,10 +156,10 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         y = torch.einsum("ne,end->nd", combine, ye)
     elif impl == "grouped":
         y = _dispatch_combine(params, x, ids.view(B, S, k), w.view(B, S, k),
-                              E, capacity(S, k, E, capacity_factor))
+                              E, capacity(S, k, E, capacity_factor), True)
     else:
         y = _dispatch_combine(params, xf[None], ids[None], w[None], E,
-                              capacity(N, k, E, capacity_factor))
+                              capacity(N, k, E, capacity_factor), False)
     y = y.reshape(N, d)
     if cfg.num_shared_experts:
         g = xf @ params["shared_wi_gate"].to(dt)

@@ -1,8 +1,18 @@
 """Parameter descriptor trees (the port's twin of ``repro.models.param``).
 
 Model ``describe_*`` functions build nested dicts whose leaves are ``P``
-descriptors: a shape, an initializer kind and an optional dtype override.
-``materialize`` turns one into real tensors on a device.
+descriptors: a shape, its logical sharding axes, an initializer kind and
+an optional dtype override.  From one descriptor tree come:
+
+* ``materialize``  — real tensors on a device,
+* ``abstract``     — meta tensors of each leaf's shape and dtype (the dry
+                     run; no memory, no generator),
+* ``logical_axes`` — the same tree of logical-axis tuples, which
+                     ``distributed.sharding`` maps onto a mesh.
+
+The logical axis names are the reference's: "embed", "ffn", "heads", "kv",
+"vocab", "experts", "expert_ffn", "layers" (the stacked layer dim), and
+None (replicated).
 
 The reference folds a sha256 of each leaf's path into a JAX PRNG key; torch
 cannot reproduce those bits, so the port draws every leaf, in sorted path
@@ -13,6 +23,7 @@ compare the two packages carry the JAX weights across
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Dict, Iterator, Optional, Tuple
@@ -34,6 +45,8 @@ class P:
     """One parameter leaf descriptor."""
 
     shape: Tuple[int, ...]
+    # logical axis name (or None) of each dim; None: every dim replicated
+    axes: Optional[Tuple[Optional[str], ...]] = None
     # "normal" (std ``stddev``, else fan-in scaled) | "ones" | "zeros" |
     # "const" (every element ``value``) | "log_arange" (log(1..N) along
     # the last axis, broadcast over the others: mamba's A_log)
@@ -42,6 +55,11 @@ class P:
     stddev: Optional[float] = None
     value: Optional[float] = None
 
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
     def std(self) -> float:
         if self.stddev is not None:
             return self.stddev
@@ -49,19 +67,24 @@ class P:
         return 1.0 / math.sqrt(max(fan_in, 1))
 
 
-def dense(d_in: int, d_out: int) -> P:
-    return P((d_in, d_out))
+def dense(d_in: int, d_out: int, in_ax: Optional[str],
+          out_ax: Optional[str], stddev: Optional[float] = None) -> P:
+    return P((d_in, d_out), (in_ax, out_ax), stddev=stddev)
 
 
-def norm_scale(d: int) -> P:
-    return P((d,), init="ones", dtype="float32")
+def norm_scale(d: int, ax: Optional[str] = "embed") -> P:
+    return P((d,), (ax,), init="ones", dtype="float32")
+
+
+def bias(d: int, ax: Optional[str]) -> P:
+    return P((d,), (ax,), init="zeros")
 
 
 def stack_layers(tree, n: int):
     """Prepend a 'layers' dim of ``n`` to every leaf of a per-layer tree."""
     if isinstance(tree, P):
-        return P((n,) + tree.shape, tree.init, tree.dtype, tree.stddev,
-                 tree.value)
+        return dataclasses.replace(tree, shape=(n,) + tree.shape,
+                                   axes=("layers",) + tree.axes)
     return {k: stack_layers(v, n) for k, v in tree.items()}
 
 
@@ -138,5 +161,24 @@ def materialize(seed: int, tree, param_dtype: str = "float32",
     return out
 
 
+def logical_axes(tree):
+    """The descriptor tree with each leaf replaced by its axes tuple."""
+    return map_tree(lambda p: p.axes, tree)
+
+
+def abstract(tree, param_dtype: str = "float32"):
+    """Meta tensors of each leaf's shape and dtype (no memory, no
+    generator: ``materialize`` cannot draw on the meta device)."""
+    return map_tree(lambda p: torch.empty(
+        p.shape, dtype=torch_dtype(p.dtype or param_dtype), device="meta"),
+        tree)
+
+
 def count_params(tree) -> int:
     return sum(math.prod(p.shape) for _, p in iter_leaves(tree))
+
+
+def param_bytes(tree, param_dtype: str = "float32") -> int:
+    return sum(math.prod(p.shape) *
+               torch_dtype(p.dtype or param_dtype).itemsize
+               for _, p in iter_leaves(tree))

@@ -31,11 +31,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nnl
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.param import (count_params, materialize, norm_scale,
-                                      stack_layers, torch_dtype)
+from repro_torch.models.param import (abstract, count_params, logical_axes,
+                                      materialize, norm_scale, stack_layers,
+                                      torch_dtype)
 
 Z_LOSS = 1e-4
 LOSS_SEQ_CHUNKS = 4
@@ -102,12 +104,14 @@ def apply_layer(params: dict, x: torch.Tensor, positions: torch.Tensor,
                                  window=_window(cfg, kind), cache=cache,
                                  cache_len=cache_len,
                                  mrope_positions=mrope_positions)
-    x = x + a
+    x = logical_constraint(x + a, "batch", "seq", "embed")
     h = nnl.rms_norm(x, params["ln_mlp"], cfg.norm_eps, zero_centered=zero_c)
+    aux = None
     if _is_moe(cfg, kind):
         m, aux = moe_mod.apply_moe(params["moe"], h, cfg, impl=moe_impl)
-        return x + m, aux
-    return x + nnl.apply_mlp(params["mlp"], h, cfg), None
+    else:
+        m = nnl.apply_mlp(params["mlp"], h, cfg)
+    return logical_constraint(x + m, "batch", "seq", "embed"), aux
 
 
 def _layer_slice(tree, j: int):
@@ -187,6 +191,14 @@ class TransformerLM(nn.Module):
     def param_count(self) -> int:
         return count_params(self.describe())
 
+    def abstract_params(self) -> Dict:
+        """The parameters' shapes and dtypes as meta tensors."""
+        return abstract(self.describe(), self.cfg.param_dtype)
+
+    def param_axes(self) -> Dict:
+        """The logical axes of each parameter leaf."""
+        return logical_axes(self.describe())
+
     # ---- forward ----------------------------------------------------------
     def _trunk(self, params: dict, batch: dict
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -205,6 +217,7 @@ class TransformerLM(nn.Module):
             if pe is not None:
                 x = torch.cat([pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
             mrope = batch.get("mrope_positions")
+        x = logical_constraint(x, "batch", "seq", "embed")
         x, aux = apply_stack(params["stack"], x, positions, cfg,
                              mrope_positions=mrope, moe_impl=self.moe_impl)
         if aux is None:
@@ -216,7 +229,8 @@ class TransformerLM(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits (B,S,V), aux_loss)."""
         x, aux = self._trunk(params, batch)
-        return nnl.unembed(params["embed"], x, self.cfg), aux
+        logits = nnl.unembed(params["embed"], x, self.cfg)
+        return logical_constraint(logits, "batch", "seq", "vocab"), aux
 
     def last_logits(self, params: dict, batch: dict) -> torch.Tensor:
         """``forward``'s logits at the last position only, (B, V): the
@@ -250,6 +264,7 @@ class TransformerLM(nn.Module):
         positions = positions.to(torch.int32)
         if cfg.mrope and mrope_positions is None:
             mrope_positions = positions[None].expand(3, *tokens.shape)
+        x = logical_constraint(x, "batch", None, "embed")
         x, _ = apply_stack(params["stack"], x, positions, cfg, caches=cache,
                            cache_len=n, mrope_positions=mrope_positions,
                            moe_impl=self.moe_impl)
@@ -323,6 +338,14 @@ class HiddenStateLM(nn.Module):
 
     def param_count(self) -> int:
         return count_params(self.describe())
+
+    def abstract_params(self) -> Dict:
+        """The parameters' shapes and dtypes as meta tensors."""
+        return abstract(self.describe(), self.cfg.param_dtype)
+
+    def param_axes(self) -> Dict:
+        """The logical axes of each parameter leaf."""
+        return logical_axes(self.describe())
 
     def forward(self, params: dict, batch: dict
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

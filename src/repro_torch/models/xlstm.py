@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models import layers as nnl
 from repro_torch.models import ssm
 from repro_torch.models.param import (P, dense, map_tree, norm_scale,
@@ -43,16 +44,18 @@ def describe_mlstm_block(cfg: ModelConfig) -> dict:
     di, H, _ = _mlstm_dims(cfg)
     return {
         "ln": norm_scale(d),
-        "w_up": P((d, 2 * di)),
-        "conv_w": P((cfg.conv_kernel, di), stddev=0.1),
-        "conv_b": P((di,), init="zeros"),
-        "wq": P((di, di)), "wk": P((di, di)), "wv": P((di, di)),
-        "w_i": P((di, H), init="zeros"),
-        "b_i": P((H,), init="zeros"),
-        "w_f": P((di, H), init="zeros"),
-        "b_f": P((H,), init="const", value=3.0),   # open forget gates
-        "gn": norm_scale(di),
-        "w_down": P((di, d)),
+        "w_up": P((d, 2 * di), ("embed", "ffn")),
+        "conv_w": P((cfg.conv_kernel, di), (None, "ffn"), stddev=0.1),
+        "conv_b": P((di,), ("ffn",), init="zeros"),
+        "wq": P((di, di), ("ffn", None)),
+        "wk": P((di, di), ("ffn", None)),
+        "wv": P((di, di), ("ffn", "ffn")),
+        "w_i": P((di, H), ("ffn", None), init="zeros"),
+        "b_i": P((H,), (None,), init="zeros"),
+        "w_f": P((di, H), ("ffn", None), init="zeros"),
+        "b_f": P((H,), (None,), init="const", value=3.0),  # open forget gates
+        "gn": norm_scale(di, "ffn"),
+        "w_down": P((di, d), ("ffn", "embed")),
     }
 
 
@@ -115,16 +118,16 @@ def describe_slstm_block(cfg: ModelConfig) -> dict:
     ffn = max(64, int(4 * d / 3) // 64 * 64)
     return {
         "ln": norm_scale(d),
-        "w_in": P((d, H, Dh, 4)),
-        "b_in": P((H, Dh, 4), init="zeros"),
-        "r_z": P((H, Dh, Dh), init="zeros"),
-        "r_i": P((H, Dh, Dh), init="zeros"),
-        "r_f": P((H, Dh, Dh), init="zeros"),
-        "r_o": P((H, Dh, Dh), init="zeros"),
+        "w_in": P((d, H, Dh, 4), ("embed", None, None, None)),
+        "b_in": P((H, Dh, 4), (None, None, None), init="zeros"),
+        "r_z": P((H, Dh, Dh), (None, None, None), init="zeros"),
+        "r_i": P((H, Dh, Dh), (None, None, None), init="zeros"),
+        "r_f": P((H, Dh, Dh), (None, None, None), init="zeros"),
+        "r_o": P((H, Dh, Dh), (None, None, None), init="zeros"),
         "gn": norm_scale(d),
-        "ffn_gate": dense(d, ffn),
-        "ffn_up": dense(d, ffn),
-        "ffn_down": dense(ffn, d),
+        "ffn_gate": dense(d, ffn, "embed", "ffn"),
+        "ffn_up": dense(d, ffn, "embed", "ffn"),
+        "ffn_down": dense(ffn, d, "ffn", "embed"),
     }
 
 
@@ -184,6 +187,7 @@ class XLSTMModel(HiddenStateLM):
                 x = checkpoint(fn, p, x, cfg, use_reentrant=False)
             else:
                 x = fn(p, x, cfg)
+            x = logical_constraint(x, "batch", "seq", "embed")
         return x
 
     def _hidden(self, params: dict, batch: dict) -> torch.Tensor:

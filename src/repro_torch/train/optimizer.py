@@ -58,6 +58,20 @@ class AdamW:
         return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
                           map_tree(zeros, params), map_tree(zeros, params))
 
+    def abstract_state(self, abstract_params) -> AdamWState:
+        """``init``'s shapes and dtypes as meta tensors: float32 moments,
+        an int32 step."""
+        def zeros(p):
+            return torch.empty(p.shape, dtype=torch.float32, device="meta")
+        return AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
+                          map_tree(zeros, abstract_params),
+                          map_tree(zeros, abstract_params))
+
+    def state_axes(self, param_axes) -> AdamWState:
+        """Logical axes of the optimizer state (the moments mirror the
+        params; the step is a scalar)."""
+        return AdamWState((), param_axes, map_tree(lambda a: a, param_axes))
+
     # ---- update -------------------------------------------------------------
     def update(self, grads, state: AdamWState, params
                ) -> Tuple[Any, AdamWState, dict]:

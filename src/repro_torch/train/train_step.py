@@ -31,11 +31,16 @@ def _batch_slice(name: str, v: torch.Tensor, i: int, n: int):
     return v.narrow(axis, i * size, size)
 
 
-def make_train_step(model, optimizer: AdamW,
+def make_train_step(model, optimizer: AdamW, compressor=None,
                     microbatches: int = 1) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, a pure function of its arguments: it returns new tensors
     and modifies none it is given.
+
+    ``compressor`` is applied to the gradients before the optimizer as the
+    reference applies it, ``compressor(grads)``; both compressors of
+    ``distributed/compression.py`` take ``(grads, residual)``, so either
+    raises ``TypeError`` there, in both packages (ROADMAP 3b).
 
     ``microbatches > 1`` accumulates float32 gradients over equal batch
     slices in order and averages them; the metrics are the last slice's
@@ -61,6 +66,8 @@ def make_train_step(model, optimizer: AdamW,
 
     def train_step(params, opt_state: AdamWState, batch):
         grads, metrics = grads_of(params, batch)
+        if compressor is not None:
+            grads = compressor(grads)
         updates, opt_state, opt_metrics = optimizer.update(
             grads, opt_state, params)
         params = apply_updates(params, updates)
